@@ -1,0 +1,139 @@
+"""Build and load the CUDA kernels under ``csrc/``.
+
+Each ``*.cu`` source becomes one shared library with a plain C interface,
+compiled by ``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``.
+All sources are compiled at once, one ``nvcc`` process each, into the
+package's ``build/`` directory (not under version control); a library is
+reused while its source and the shared header are unchanged. A failed build
+raises with the compiler's output: there is no fallback for a CUDA tensor.
+
+The binding convention: every pointer and the stream are ``c_void_p``
+(``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``),
+sizes are ``c_int`` / ``c_longlong``, and every entry point returns
+``cudaGetLastError()`` taken right after its launch; :func:`check` turns a
+non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(
+    os.environ.get(
+        "RAXTAX_TORCH_BUILD_DIR",
+        Path(__file__).resolve().parent.parent / "build",
+    )
+)
+KERNEL_SOURCES = ("fold_planes", "planes_hist", "planes_probs", "exact_cumsum")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[str, object] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME): the CUDA "
+        "kernels cannot be built on this machine"
+    )
+
+
+def _lib_path(stem: str) -> Path:
+    h = hashlib.sha1()
+    for src in (CSRC / f"{stem}.cu", CSRC / "rx_common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel source that has no current library, all in
+    parallel. Returns the wall seconds spent (0.0 when nothing was built)."""
+    todo = [s for s in KERNEL_SOURCES if not _lib_path(s).is_file()]
+    if not todo:
+        return 0.0
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    procs = []
+    for stem in todo:
+        lib = _lib_path(stem)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        procs.append((stem, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for stem, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        # registers / shared memory / spills per kernel, for later reading
+        (BUILD_DIR / f"{stem}.nvcc.log").write_text(out or "")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"--- {stem}.cu (exit {proc.returncode}) ---\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.time() - t0
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source (builds all on first use)."""
+    lib = _libs.get(stem)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_lib_path(stem)))
+        lib.rx_error_string.restype = ctypes.c_char_p
+        lib.rx_error_string.argtypes = [ctypes.c_int]
+        _libs[stem] = lib
+    return lib
+
+
+def entry(stem: str, name: str, argtypes: list):
+    """The C entry point ``name`` of ``csrc/<stem>.cu``, returning an int
+    error code, with its argument types set (once)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load(stem), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entries[name] = fn
+    return fn
+
+
+def check(stem: str, code: int, what: str) -> None:
+    """Raise when a kernel entry point reported a CUDA error."""
+    if code != 0:
+        msg = load(stem).rx_error_string(code)
+        raise RuntimeError(
+            f"{what}: CUDA error {code} "
+            f"({msg.decode() if msg else 'unknown'})"
+        )
+
+
+def require_cuda_tensor(t, dtype, name: str) -> None:
+    """The checks every wrapper makes on a tensor it hands to a kernel."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
