@@ -6,6 +6,13 @@ Same output artifacts (`raxtax.out`, `raxtax.tsv`, `raxtax.log`,
 `raxtax.ckp`, `raxtax.json`), same checkpoint / resume semantics, same
 BSD-style exit codes. Runs on the GPU unless ``--device cpu`` is given.
 
+The engine's mode is chosen by the JAX package's own environment names, read
+here and nowhere else in the package (:func:`engine_mode_from_env`):
+``RAXTAX_EXACT`` (``1`` exact f64, ``0`` double-f32, ``auto`` double-f32 until
+host replays become dense), ``RAXTAX_SPARSE_FOLD`` (``1`` block-sparse fold)
+and ``RAXTAX_BM_SCAN`` (``1`` bit-major scan). Unset, they leave the port's
+defaults: exact significance, dense fold.
+
 Flags of the JAX package whose code paths are not ported yet (meshes,
 multi-process runs, the xla/stream backends, the on-device f32 descent,
 profiler traces) are still parsed, and exit with a "not yet ported" error
@@ -15,6 +22,7 @@ rather than silently running a single-device job.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -132,6 +140,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def engine_mode_from_env(environ=None) -> dict:
+    """The engine's mode arguments from the JAX package's environment names,
+    with the port's defaults where a name is unset or empty."""
+    env = os.environ if environ is None else environ
+    exact = env.get("RAXTAX_EXACT", "")
+    if exact not in ("", "0", "1", "auto"):
+        raise ValueError(f"RAXTAX_EXACT must be 0, 1 or auto, not {exact!r}")
+    return {
+        "significance": {"": "exact", "1": "exact", "0": "dd", "auto": "auto"}[exact],
+        "fold": (
+            "sparse" if env.get("RAXTAX_SPARSE_FOLD", "") not in ("", "0")
+            else "dense"
+        ),
+        "bm_scan": env.get("RAXTAX_BM_SCAN", "") not in ("", "0"),
+    }
+
+
 def not_ported(args) -> str | None:
     """The first requested option whose code path is not ported yet."""
     checks = [
@@ -157,6 +182,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.only_db and args.skip_db:
         # clap `conflicts_with` usage error, exit code 2 (src/io.rs:128-129)
         parser.error("--only-db cannot be used with --skip-db")
+    try:
+        vars(args).update(engine_mode_from_env())
+    except ValueError as e:
+        parser.error(str(e))
     missing = not_ported(args)
     if missing is not None:
         print(
@@ -210,8 +239,11 @@ def main(argv: list[str] | None = None) -> int:
         backend = args.backend
         want_ref_major = args.only_db
         # flat postings at scale (the bit-major planes are then tip order),
-        # packed for tiny databases
-        want_layout = "auto"
+        # packed for tiny databases; the bit-major scan reads packed only
+        want_layout = (
+            "packed" if args.bm_scan and args.significance != "exact"
+            else "auto"
+        )
         try:
             with phase_timer("Parsing References"):
                 parsed_from_fasta, db = load_or_parse_database(

@@ -5,8 +5,9 @@
   (neither package imports the other; the ``.rxdb`` cache file is the other
   bridge, readable by both).
 - :func:`device_state` uploads what the engine keeps resident on the device:
-  the k-mer-major postings matrix, the eval-node ranges, the unit/wide split
-  and the descent CSR.
+  the k-mer-major postings matrix (block-padded, with its host block CSR,
+  when the sparse fold is asked for), the eval-node ranges, the unit/wide
+  split and the descent CSR.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from .db.database import Database, ExactIndex
 from .db.taxonomy import NODE_INNER, Taxonomy
-from .ops.intersect_fold import prepare_kmer_major
+from .ops.intersect_fold import prepare_kmer_major, prepare_kmer_major_sparse
 
 
 def database_fields(db) -> dict:
@@ -94,12 +95,22 @@ class DeviceState:
     child_ids: torch.Tensor
     is_inner: torch.Tensor  #: [n_nodes] bool
     pad_node: int  #: a non-Inner node id (a no-op descent start)
+    #: unit/wide double-f32 path: carry the overflow tips in a sideband
+    #: (True) or patch them with a scatter (False)
+    sideband: bool = True
+    #: host block CSR of the sparse fold (None: dense fold only)
+    blk_ptr: np.ndarray | None = None
+    blk_ids: np.ndarray | None = None
 
 
-def device_state(db: Database, device, split2: bool = True) -> DeviceState:
+def device_state(
+    db: Database, device, split2: bool = True, sparse: bool = False
+) -> DeviceState:
     """Upload the resident state. The descent CSR is in GLOBAL node space:
     the reference's ``max_by`` ranges over all children, childless Sequence
-    nodes included (src/lineage.rs:154-170)."""
+    nodes included (src/lineage.rs:154-170). With ``sparse`` the matrix is
+    padded to whole 8 x 128-word blocks and its block CSR is kept on the
+    host; the dense fold runs on the same copy."""
     dev = torch.device(device)
     tax = db.taxonomy
 
@@ -108,19 +119,29 @@ def device_state(db: Database, device, split2: bool = True) -> DeviceState:
 
     eval_ids = tax.eval_ids
     split = unit_ptr = unit_vals = None
+    sideband = True
     if split2:
         ws, we, wp, unit_ptr, unit_vals = tax.unit_wide_arrays()
+        # the sideband's work grows with the wide boundaries, the scatter's
+        # with the tips: only taxonomies where most nodes are wide keep the
+        # scatter (the JAX package's rule)
+        sideband = 2 * ws.size <= max(4096, db.num_tips // 2)
         split = (
             up(ws, torch.int64), up(we, torch.int64), up(wp, torch.int64),
             up((unit_ptr[1:] - unit_ptr[:-1]) > 0),
         )
     pad_node = tax.n_nodes - 1  # the last created node is a Sequence leaf
     assert tax.node_type[pad_node] != NODE_INNER
+    blk_ptr = blk_ids = None
+    if sparse:
+        kmer_major3, blk_ptr, blk_ids = prepare_kmer_major_sparse(db, dev)
+    else:
+        kmer_major3 = prepare_kmer_major(db, dev)
     return DeviceState(
         device=dev,
         num_tips=db.num_tips,
         layout=db.kmer_layout,
-        kmer_major3=prepare_kmer_major(db, dev),
+        kmer_major3=kmer_major3,
         node_starts=up(tax.range_start[eval_ids], torch.int64),
         node_ends=up(tax.range_end[eval_ids], torch.int64),
         split2=split,
@@ -132,4 +153,7 @@ def device_state(db: Database, device, split2: bool = True) -> DeviceState:
         child_ids=up(tax.child_ids, torch.int64),
         is_inner=up(tax.node_type == NODE_INNER),
         pad_node=pad_node,
+        sideband=sideband,
+        blk_ptr=blk_ptr,
+        blk_ids=blk_ids,
     )

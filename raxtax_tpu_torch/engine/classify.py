@@ -22,7 +22,9 @@ log = logging.getLogger("raxtax")
 
 def make_classifier(db: Database, args, n_queries_hint: int | None = None):
     """Backend dispatch: 'oracle' (host numpy, exact) or 'auto' (the device
-    engine, on ``args.device``: the GPU unless the CPU is asked for)."""
+    engine, on ``args.device``: the GPU unless the CPU is asked for, in the
+    mode ``args.significance`` / ``args.fold`` / ``args.bm_scan`` name; the
+    engine's defaults where they are absent)."""
     backend = getattr(args, "backend", "auto")
     if backend == "oracle":
         return OracleClassifier(
@@ -43,6 +45,9 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
         debug_checks=getattr(args, "debug_checks", False),
         tsv=getattr(args, "tsv", True),
         n_queries_hint=n_queries_hint,
+        significance=getattr(args, "significance", "exact"),
+        fold=getattr(args, "fold", "dense"),
+        bm_scan=getattr(args, "bm_scan", False),
     )
 
 

@@ -1,23 +1,35 @@
-"""Device classification engine (exact-f64 semantics, one GPU).
+"""Device classification engine (one GPU), in two significance modes.
 
 Per query batch, three phases:
 
   A submit   host: distinct 8-mers, exact-match lookup
-             device: postings fold (K1) -> counter planes, exact-match tips
-             zeroed, intersection-size histogram (K3), async pull
+             device: postings fold (K1 dense, or K2 block-sparse with a
+             sticky flip to K1) -> counter planes, exact-match tips zeroed,
+             intersection-size histogram (K3), async pull
   B prepare  host: histogram in, f64 top-hit probability tables + global
              signal (prob/model.py)
-             device: per-tip table lookup (K4), sequential f64 prefix scan
-             (K5), threshold masks over wide nodes and unit tips
-  C finalize device: compaction of the significant set and its pull, exact
+             device: per-tip table lookup (K4), prefix scan, threshold masks
+             over wide nodes and unit tips
+  C finalize device: compaction of the significant set and its pull,
              max-confidence descents
-             host: native evaluation and formatting
+             host: replays, native evaluation and formatting
+
+``significance="exact"`` (the default): K4 and the scan (K5) work in f64 in
+the reference's sequential order (src/lineage.rs:62-67), so every confidence
+the host sees is the reference's exact value and nothing replays on the host
+except the global signal of a query on a 5th-decimal rounding boundary.
+
+``significance="dd"``: the JAX package's default path. The planes are
+compressed into the wire (K8 + compaction, ``ops/compress.py``), K4 reads an
+f32 table through the low four count bits, the scan is double-f32 (K6, or K7
+with ``bm_scan``), and the host recombines ``float64(hi) + float64(lo)``.
+That is within ~4e-9 of the exact value, so confidences inside a half-cent
+risk band, and descents whose device margin proves nothing, replay on the
+host in exact f64 from the wire. ``"auto"`` starts on that path and flips to
+the exact one for the rest of the run when host replays become dense.
 
 All O(num_refs) work runs on the device; the host touches histograms,
-(K+1)-sized tables and the compacted significant set. Every confidence the
-host sees is the reference's exact f64 value (sequential prefix sums,
-src/lineage.rs:62-67), so nothing replays on the host except the global
-signal of a query that sits on a 5th-decimal rounding boundary.
+(K+1)-sized tables, the compacted significant set and the replayed rows.
 """
 
 from __future__ import annotations
@@ -39,8 +51,20 @@ from ..models.oracle import (
     apply_exact_match_policy,
     log_exact_matches,
 )
+from ..ops.compress import compress_planes, decompress_planes_rows
 from ..ops.exactscan import max_descent_exact, significant_nodes_exact
-from ..ops.intersect_fold import PAD_ROW, fold_planes
+from ..ops.intersect_fold import (
+    PAD_ROW,
+    build_pairs,
+    fold_planes,
+    fold_planes_sparse,
+)
+from ..ops.nodeconf import (
+    DESCENT_MARGIN_SAFE,
+    cum_from_planes,
+    max_descent,
+    significant_nodes_planes,
+)
 from ..ops.planes import (
     decode_plane_rows,
     planes_histogram,
@@ -51,6 +75,13 @@ from ..utils.device import resolve_device
 from ..utils.encoding import round_half_away, sequence_to_kmers
 
 log = logging.getLogger("raxtax")
+
+#: Half-cent rounding-risk margin (in hundredths-of-confidence fraction
+#: units) for device-computed double-f32 confidences: the host recombination
+#: float64(hi) + float64(lo) is within ~4e-9 of the reference's exact f64
+#: value (scan error only). Values inside the band replay on the host from
+#: the exact count row.
+CONF_RISK_MARGIN_SINGLE = 1e-6
 
 #: The engine computes the global signal from the intersection-size
 #: HISTOGRAM (per-bucket grouping); the reference accumulates sequentially
@@ -68,6 +99,54 @@ SIGNAL_RISK_MARGIN = 1e-4
 _LIVE_BYTES_PER_TIP = 150
 BATCH_MAX = 256
 BATCH_MIN = 32
+
+#: Pair budget of the sparse fold, the work crossover against the dense one:
+#: ``max(SPARSE_BUDGET_MIN, k_pad * S // SPARSE_CROSSOVER_DIV)`` pairs per
+#: query. Both constants are carried over from the JAX package and were not
+#: measured on the GPU.
+SPARSE_BUDGET_MIN = 2048
+SPARSE_CROSSOVER_DIV = 24
+
+
+@dataclass
+class _Submitted:
+    """Phase-A state of one batch."""
+
+    labels: list
+    seqs: list
+    exact: list
+    ks: list
+    s_max: int
+    n_real: int
+    planes: torch.Tensor
+    hist_host: torch.Tensor
+    ready: object
+
+
+@dataclass
+class _Prepared:
+    """Phase-B state of one batch. ``exact_mode`` is the batch's own mode:
+    under ``significance="auto"`` a batch prepared before the flip still
+    finishes on the double-f32 path."""
+
+    labels: list
+    seqs: list
+    exact: list
+    n_real: int
+    planes: torch.Tensor
+    tables64: list
+    global_signals: np.ndarray
+    signal_risky: list
+    sig: object
+    #: exact: [B, Np+1] f64 prefix sums; dd: (cum_hi, cum_lo) or None
+    cum0: object
+    exact_mode: bool
+    #: dd: the wire (lo4, over_idx, over_val, n_over) on the device, or None
+    wire: tuple | None = None
+    #: dd: the wire whose overflow lists fed the lookup's fix-up (None when
+    #: the full-width lookup was used)
+    sig_wire: tuple | None = None
+    table: torch.Tensor | None = None  #: dd: [B, s_max] f32 on the device
 
 
 def _round_up(x: int, m: int) -> int:
@@ -110,6 +189,33 @@ class DeviceClassifier:
     debug_checks: bool = False
     #: replay every query's global signal sequentially (tests)
     force_signal_replay: bool = False
+    #: "exact", "dd" or "auto" (see the module note)
+    significance: str = "exact"
+    #: dd path: feed the scan bit-major probabilities (K7) and take the
+    #: plain eval-node compaction, as the JAX package's RAXTAX_BM_SCAN does
+    bm_scan: bool = False
+    #: the batch being prepared runs the exact-f64 path (sticky once set)
+    _exact_mode: bool = field(default=True, repr=False)
+    #: block-sparse fold (K2). Sticky: a workload whose pair count exceeds
+    #: the crossover budget switches to the dense fold for good
+    _sparse: bool = field(default=False, repr=False)
+    #: FIXED overflow-list budget of the wire (set once per database)
+    _over_budget: int = field(default=4096, repr=False)
+    #: sticky dense-count mode of the dd path: conserved-marker data gives
+    #: nearly every tip a count above 15, which no overflow budget covers.
+    #: When a batch's overflow exceeds the budget, probabilities switch for
+    #: good to the full-width lookup (exact for every count, no lists)
+    _mux_dense: bool = field(default=False, repr=False)
+    #: the last finalized batch replayed at least half of its queries on
+    #: the host (the condition that flips "auto" to the exact path)
+    _fb_dense: bool = field(default=False, repr=False)
+    #: queries whose descents were replayed on the host in the last batch
+    _replayed_queries: set = field(default_factory=set, repr=False)
+    #: queries replayed on the host (risk band or descent) since creation
+    host_replays: int = 0
+    #: [pairs, queries with a pair, most pairs of one query] folded by the
+    #: sparse kernel since creation
+    pair_stats: list = field(default_factory=lambda: [0, 0, 0], repr=False)
     _cache: KTableCache = field(default_factory=KTableCache, repr=False)
     _evaluator: object = field(default=None, repr=False)
     #: sticky high-water shape buckets: the pad levels only grow, so a
@@ -127,6 +233,10 @@ class DeviceClassifier:
         repr=False,
     )
 
+    #: host-work budget of the batched all-host descent (tip decode + add
+    #: steps per batch); past it the device descent is the cheaper path
+    DESCEND_HOST_WORK = 24_000_000
+
     @classmethod
     def create(
         cls,
@@ -139,13 +249,29 @@ class DeviceClassifier:
         debug_checks: bool = False,
         tsv: bool = True,
         n_queries_hint: int | None = None,
+        significance: str = "exact",
+        fold: str = "dense",
+        bm_scan: bool = False,
     ) -> "DeviceClassifier":
         """Upload the database and build the classifier. ``device`` defaults
         to the GPU and raises when there is none; pass ``"cpu"`` to run the
         kernels' plain versions on the host. ``split2`` picks the unit/wide
-        significance split (default) or one boundary pair per eval node."""
+        significance split (default) or one boundary pair per eval node.
+        ``significance`` is ``"exact"`` (default), ``"dd"`` or ``"auto"``
+        (start on dd, flip to exact under dense host replays); ``fold`` is
+        ``"dense"`` (default) or ``"sparse"``; ``bm_scan`` selects K7 on the
+        dd path."""
+        if significance not in ("exact", "dd", "auto"):
+            raise ValueError(f"unknown significance mode {significance!r}")
+        if fold not in ("dense", "sparse"):
+            raise ValueError(f"unknown fold {fold!r}")
+        if bm_scan and significance != "exact" and db.kmer_layout != "packed":
+            raise ValueError(
+                "bm_scan reads the packed postings layout; this database "
+                f"holds the {db.kmer_layout} one"
+            )
         dev = resolve_device(device)
-        state = device_state(db, dev, split2=split2)
+        state = device_state(db, dev, split2=split2, sparse=fold == "sparse")
         n_padded = int(state.kmer_major3.shape[1] * state.kmer_major3.shape[2]) * 32
         if not batch_size:
             batch_size = auto_batch_size(state, n_padded, n_queries_hint)
@@ -157,7 +283,15 @@ class DeviceClassifier:
             state=state,
             tsv=tsv,
             debug_checks=debug_checks,
+            significance=significance,
+            bm_scan=bool(bm_scan),
         )
+        self._exact_mode = significance == "exact"
+        self._sparse = fold == "sparse"
+        # scale-aware FIXED overflow budget: overflow tips track the size of
+        # the closest clade, which grows with the database. Workloads that
+        # exceed it switch to the full-width lookup (see _mux_dense)
+        self._over_budget = max(512, min(4096, db.num_tips // 256))
         self._evaluator = native.NativeEvaluator.create(db)
         return self
 
@@ -177,6 +311,34 @@ class DeviceClassifier:
         if self.state.device.type == "cuda":
             return t.pin_memory().to(self.state.device, non_blocking=True)
         return t
+
+    def _sparse_counts(self, kmer_idx: np.ndarray, k_pad: int):
+        """Block-sparse fold dispatch, or None after a sticky fallback.
+
+        The pair budget is the work crossover against the dense fold;
+        exceeding it once flips the engine to the dense kernel for good —
+        conserved-marker k-mers that post in every block would pay the
+        ripple fold's higher per-word cost for no traffic win."""
+        st = self.state
+        S = int(st.kmer_major3.shape[1])
+        budget = max(SPARSE_BUDGET_MIN, k_pad * S // SPARSE_CROSSOVER_DIV)
+        res = build_pairs(kmer_idx, st.blk_ptr, st.blk_ids, budget)
+        if res is None:
+            self._sparse = False
+            log.info(
+                "dense postings profile (pair budget %d exceeded): "
+                "switching to the dense fold", budget,
+            )
+            return None
+        pair_kmer, pair_blk, max_pairs, totals = res
+        self.pair_stats[0] += int(totals.sum())
+        self.pair_stats[1] += int(np.count_nonzero(totals))
+        self.pair_stats[2] = max(self.pair_stats[2], max_pairs)
+        return fold_planes_sparse(
+            self._to_device(pair_kmer), self._to_device(pair_blk),
+            self._to_device(totals.astype(np.int32)), st.kmer_major3,
+            max_count=k_pad,
+        )
 
     def submit_batch(self, chunk: list[tuple[str, np.ndarray]]):
         """Phase A: host prep + device dispatch of the fold and histogram.
@@ -233,12 +395,16 @@ class DeviceClassifier:
             else 0
         )
 
-        planes = fold_planes(
-            self._to_device(kmer_idx),
-            self._to_device(np.asarray(ks, np.int32)),
-            st.kmer_major3,
-            max_count=k_pad,
-        )
+        planes = None
+        if self._sparse:
+            planes = self._sparse_counts(kmer_idx, k_pad)
+        if planes is None:
+            planes = fold_planes(
+                self._to_device(kmer_idx),
+                self._to_device(np.asarray(ks, np.int32)),
+                st.kmer_major3,
+                max_count=k_pad,
+            )
         if e_pad:
             ids = np.full((B, e_pad), -1, dtype=np.int64)
             for i, e in enumerate(exact):
@@ -259,20 +425,46 @@ class DeviceClassifier:
         else:
             hist_host, ready = hist_dev, None
         self.phase_seconds["submit"] += time.perf_counter() - t_start
-        return (labels, seqs, exact, ks, s_max, n_real, planes, hist_host, ready)
+        return _Submitted(
+            labels, seqs, exact, ks, s_max, n_real, planes, hist_host, ready
+        )
 
-    def prepare_batch(self, state):
+    def _significant_dd(self, planes, table, wire):
+        """The double-f32 significance stage; ``wire`` None selects the
+        full-width lookup (no overflow lists)."""
+        st = self.state
+        over_idx, over_val = (wire[1], wire[2]) if wire is not None else (None, None)
+        return significant_nodes_planes(
+            planes, table, st.node_starts, st.node_ends,
+            over_idx=over_idx, over_val=over_val, bm_scan=self.bm_scan,
+            layout=st.layout, split2=st.split2, sideband=st.sideband,
+            num_tips=self.db.num_tips,
+        )
+
+    def prepare_batch(self, state: _Submitted) -> _Prepared:
         """Phase B: wait for the histogram, run the host f64 probability
-        model, dispatch the table lookup, the exact scan and the threshold
-        masks. Nothing else is pulled here, so a following phase-A dispatch
-        of the next batch queues right behind this batch's device work."""
+        model, dispatch the table lookup, the scan and the threshold masks
+        (and, on the double-f32 path, the wire compression before them).
+        The significant set is not pulled here, so a following phase-A
+        dispatch of the next batch queues right behind this batch's device
+        work."""
         t_start = time.perf_counter()
-        labels, seqs, exact, ks, s_max, n_real, planes, hist_host, ready = state
+        ks, s_max, n_real, planes = state.ks, state.s_max, state.n_real, state.planes
         st = self.state
         B = self.batch_size
-        if ready is not None:
-            ready.synchronize()
-        hist = hist_host.numpy()
+        exact_mode = self._exact_mode
+        wire = None
+        if not exact_mode and not self._mux_dense:
+            # the overflow lists feed the low-bit lookup's fix-up on the
+            # device; the lo4 planes are the host wire, gathered per query
+            # when a replay asks for them. Skipped in dense-count mode (the
+            # full-width lookup needs no fix-up; replays decode the planes)
+            wire = compress_planes(
+                planes, budget=self._over_budget, layout=st.layout
+            )
+        if state.ready is not None:
+            state.ready.synchronize()
+        hist = state.hist_host.numpy()
         if self.debug_checks:
             # device-stage integrity: every reference lands in exactly one
             # histogram bucket, and no intersection can exceed the query's
@@ -306,60 +498,283 @@ class DeviceClassifier:
             if abs(frac - 0.5) < SIGNAL_RISK_MARGIN or self.force_signal_replay:
                 signal_risky.append(b)
 
-        sig, cum = significant_nodes_exact(
-            planes, self._to_device(table64), st.node_starts, st.node_ends,
-            split2=st.split2, layout=st.layout, num_tips=self.db.num_tips,
-        )
+        table = None
+        if exact_mode:
+            sig, cum0 = significant_nodes_exact(
+                planes, self._to_device(table64), st.node_starts, st.node_ends,
+                split2=st.split2, layout=st.layout, num_tips=self.db.num_tips,
+            )
+        else:
+            table = self._to_device(table64.astype(np.float32))
+            sig, cum0 = self._significant_dd(planes, table, wire)
         self.phase_seconds["prepare"] += time.perf_counter() - t_start
-        return (
-            labels, seqs, exact, n_real, planes, cum, tables64,
-            global_signals, sig, signal_risky,
+        return _Prepared(
+            labels=state.labels, seqs=state.seqs, exact=state.exact,
+            n_real=n_real, planes=planes, tables64=tables64,
+            global_signals=global_signals, signal_risky=signal_risky,
+            sig=sig, cum0=cum0, exact_mode=exact_mode, wire=wire,
+            sig_wire=wire, table=table,
         )
 
     def _exact_row(self, b: int, planes) -> np.ndarray:
         """One query's exact count row in tip order, decoded on the device
         from its planes."""
-        row = decode_plane_rows(planes, [b], self.state.layout)
-        return row[0, : self.db.num_tips].cpu().numpy().astype(np.int64)
+        return self._plane_rows(planes, [b])[0].astype(np.int64)
 
-    def _descend(self, sites: list[tuple[int, int]], cum) -> dict:
-        """Exact max-confidence descents for every (query, GLOBAL node) site
-        (src/lineage.rs:151-177), on the device."""
+    def _plane_rows(self, planes, queries: list[int]) -> np.ndarray:
+        """``[len(queries), num_tips]`` exact counts decoded on the device
+        from the planes of the given queries."""
+        rows = decode_plane_rows(planes, queries, self.state.layout)
+        return rows[:, : self.db.num_tips].cpu().numpy()
+
+    @property
+    def _flat_w(self) -> int:
+        """Word count of the flat layout (0 when packed), as the native
+        decoders take it."""
+        st = self.state
+        if st.layout != "flat":
+            return 0
+        return int(st.kmer_major3.shape[1] * st.kmer_major3.shape[2])
+
+    @staticmethod
+    def _gather_wire_rows(wire, queries: list[int]):
+        """The wire rows of the selected queries on the host: ``(lo4 u32
+        [m, 4, S, 128], over_idx i32, over_val u16, n_over)``."""
+        lo4, over_idx, over_val, n_over = wire
+        idx = torch.as_tensor(queries, dtype=torch.long, device=lo4.device)
+        return (
+            lo4.index_select(0, idx).contiguous().cpu().numpy().view(np.uint32),
+            over_idx.index_select(0, idx).cpu().numpy(),
+            over_val.index_select(0, idx).cpu().numpy().astype(np.uint16),
+            n_over.index_select(0, idx).cpu().numpy(),
+        )
+
+    def _ensure_cums(
+        self, queries: list[int], st: _Prepared, cum_for: dict[int, np.ndarray]
+    ) -> None:
+        """Fill ``cum_for[b]`` with the exact f64 tip-probability prefix sum
+        of every requested query (src/lineage.rs:62-67): decoded from the
+        query's wire rows when its overflow list fits the budget, else from
+        its full planes. The native kernel fuses decode + table gather +
+        running sum; the numpy fallbacks add left to right in f64 as well."""
+        num_tips = self.db.num_tips
+        todo = [b for b in queries if b not in cum_for]
+        full_needed: list[int] = todo
+        if st.wire is not None and todo:
+            full_needed = []
+            lo4, over_idx, over_val, n_over = self._gather_wire_rows(st.wire, todo)
+            budget = over_idx.shape[1]
+            for i, b in enumerate(todo):
+                n = int(n_over[i])
+                if n > budget:  # the overflow list did not fit
+                    full_needed.append(b)
+                    continue
+                cum = native.tip_cumsum_planes4(
+                    lo4[i], over_idx[i], over_val[i], n, st.tables64[b],
+                    num_tips, flat_w=self._flat_w,
+                )
+                if cum is None:  # no native library: numpy decompress path
+                    row, over = decompress_planes_rows(
+                        lo4, over_idx, over_val, n_over, [i], num_tips,
+                        budget=budget, layout=self.state.layout,
+                    )
+                    assert not over
+                    cum = np.concatenate(
+                        ([0.0], np.cumsum(st.tables64[b][row[0]]))
+                    )
+                cum_for[b] = cum
+        if full_needed:
+            rows = self._plane_rows(st.planes, full_needed)
+            for row, b in zip(rows, full_needed):
+                cum = native.tip_cumsum_u16(row, st.tables64[b], num_tips)
+                if cum is None:
+                    cum = np.concatenate(([0.0], np.cumsum(st.tables64[b][row])))
+                cum_for[b] = cum
+        self.host_replays += len(todo)
+
+    def _descend_host(self, cum: np.ndarray, node: int) -> int:
+        """The reference's descent (src/lineage.rs:151-177) on one query's
+        exact f64 prefix sums: range sums on demand, LAST maximal child."""
+        tax = self.db.taxonomy
+        rs, re = tax.range_start, tax.range_end
+        cur = node
+        while tax.node_type[cur] == NODE_INNER:
+            kids = tax.children(cur)
+            v = cum[re[kids]] - cum[rs[kids]]
+            cur = int(kids[len(v) - 1 - int(np.argmax(v[::-1]))])
+        return cur
+
+    def _descend_host_batch(
+        self, sites: list[tuple[int, int]], st: _Prepared, cum_cache: dict
+    ) -> dict | None:
+        """One native pass resolving every site whose query is not already
+        in ``cum_cache``: exact f64 prefix sums + reference descents.
+        Returns None when the native library is missing, a query's overflow
+        list does not fit the wire, or the decode work exceeds
+        :data:`DESCEND_HOST_WORK` — the caller then descends on the
+        device."""
+        if native.get_lib() is None:
+            return None
+        tax = self.db.taxonomy
+        uq = sorted({b for b, _ in sites if b not in cum_cache})
+        if not uq:
+            return {}
+        if len(uq) * self.db.num_tips > self.DESCEND_HOST_WORK:
+            return None
+        lo4, over_idx, over_val, n_over = self._gather_wire_rows(st.wire, uq)
+        if (n_over > over_idx.shape[1]).any():
+            return None  # the wire cannot reproduce some query's counts
+        row_of = {b: i for i, b in enumerate(uq)}
+        keys = [(b, node) for b, node in sites if b not in cum_cache]
+        finals = native.descend_planes4_batch(
+            lo4, over_idx, over_val, n_over, [st.tables64[b] for b in uq],
+            np.asarray([row_of[b] for b, _ in keys], np.int32),
+            np.asarray([node for _, node in keys], np.int32),
+            self.db.num_tips, tax.range_start, tax.range_end,
+            tax.child_ptr, tax.child_ids, tax.node_type,
+            flat_w=self._flat_w,
+        )
+        if finals is None:
+            return None
+        self._replayed_queries = set(uq)
+        self.host_replays += len(uq)
+        return {k: int(f) for k, f in zip(keys, finals)}
+
+    def _site_tensors(self, sites):
+        arr = np.asarray(sites, dtype=np.int64)
+        dev = self.state.device
+        return (
+            torch.from_numpy(arr[:, 0].copy()).to(dev),
+            torch.from_numpy(arr[:, 1].copy()).to(dev),
+        )
+
+    def _resolve_fallbacks(
+        self, sites: list[tuple[int, int]], st: _Prepared, cum_cache: dict
+    ) -> dict:
+        """Max-confidence descents for every (query, GLOBAL node) site
+        (src/lineage.rs:151-177): ``{site -> final Taxon/Sequence node}``.
+
+        Exact mode descends on the device on exact f64 values, bit for bit
+        the reference's recursion; nothing is marginal. On the double-f32
+        path the sites first try one batched all-host pass over the wire
+        (tie-dense workloads fail the device margin for most sites, so the
+        device descent would be pure overhead); past its work budget they
+        descend on the device with certainty margins, and a result is
+        accepted only when its margin PROVES the f32 argmax equals the
+        reference's f64 one. Marginal sites — exact ties, near-ties — and
+        sites of queries whose f64 prefix sums are in ``cum_cache`` already
+        replay on the host."""
+        self._replayed_queries = set()
         if not sites:
             return {}
-        st = self.state
-        arr = np.asarray(sites, dtype=np.int64)
-        finals = max_descent_exact(
-            cum,
-            torch.from_numpy(arr[:, 0].copy()).to(st.device),
-            torch.from_numpy(arr[:, 1].copy()).to(st.device),
-            st.range_start, st.range_end, st.child_ptr, st.child_ids,
-            st.is_inner,
-        ).cpu().numpy()
-        return {s: int(f) for s, f in zip(sites, finals)}
+        ds = self.state
+        if st.exact_mode:
+            finals = max_descent_exact(
+                st.cum0, *self._site_tensors(sites),
+                ds.range_start, ds.range_end, ds.child_ptr, ds.child_ids,
+                ds.is_inner,
+            ).cpu().numpy()
+            return {s: int(f) for s, f in zip(sites, finals)}
+
+        fallback_map: dict = {}
+        if st.wire is not None:
+            resolved = self._descend_host_batch(sites, st, cum_cache)
+            if resolved is not None:
+                fallback_map.update(resolved)
+                rest = [(b, n) for b, n in sites if b in cum_cache]
+                for b, node in rest:
+                    fallback_map[(b, node)] = self._descend_host(cum_cache[b], node)
+                self._replayed_queries |= {b for b, _ in rest}
+                return fallback_map
+
+        cum0 = st.cum0
+        if cum0 is None:
+            # the unit/wide path does not keep the [B, N+1] pair across the
+            # pipeline; rebuild it from the retained planes — same
+            # construction, same double-f32 rounding as the compaction
+            sw = st.sig_wire
+            cum0 = cum_from_planes(
+                st.planes, st.table,
+                sw[1] if sw is not None else None,
+                sw[2] if sw is not None else None,
+                layout=ds.layout,
+                sideband=ds.split2 is not None and ds.sideband,
+            )
+        finals, margins = max_descent(
+            cum0, *self._site_tensors(sites),
+            ds.range_start, ds.range_end, ds.child_ptr, ds.child_ids,
+            ds.is_inner,
+        )
+        finals = finals.cpu().numpy()
+        margins = margins.cpu().numpy()
+        host_sites: list[tuple[int, int]] = []
+        for i, (b, node) in enumerate(sites):
+            if margins[i] > DESCENT_MARGIN_SAFE and b not in cum_cache:
+                fallback_map[(b, node)] = int(finals[i])
+            else:
+                host_sites.append((b, node))
+        if not host_sites:
+            return fallback_map
+        # exact replay of the marginal sites on the host
+        fb_queries = sorted({b for b, _ in host_sites})
+        self._replayed_queries = set(fb_queries)
+        self._ensure_cums(fb_queries, st, cum_cache)
+        for b, node in host_sites:
+            fallback_map[(b, node)] = self._descend_host(cum_cache[b], node)
+        return fallback_map
+
+    def _pull_significant(self, st: _Prepared):
+        """Compact and pull the batch's significant set: ``(off, idx,
+        conf64)``. On the double-f32 path the overflow-adequacy check comes
+        first, keyed on the batch's OWN wire, not on the sticky flag — a
+        batch prepared with the low-bit lookup just before a sibling batch
+        flipped the flag still needs its own redo. A query whose tips with a
+        count above 15 exceed the fixed budget got WRONG device
+        probabilities from the fix-up: redo the batch's significance with
+        the full-width lookup and stay in dense-count mode. Then the f64
+        recombination, within ~4e-9 of the reference's sequential f64
+        confidences (see CONF_RISK_MARGIN_SINGLE)."""
+        if st.exact_mode:
+            return st.sig.pull()
+        if st.wire is not None and st.n_real:
+            n_over = st.wire[3].cpu().numpy()[: st.n_real]
+            budget = st.wire[1].shape[1]
+            if (n_over > budget).any():
+                if not self._mux_dense:
+                    self._mux_dense = True
+                    log.info(
+                        "dense intersection profile (max %d tips over the "
+                        "%d-slot overflow budget): switching to the "
+                        "full-width probability lookup",
+                        int(n_over.max(initial=0)), budget,
+                    )
+                st.sig_wire = None  # an inadequate wire must not feed the lookup
+                st.sig, st.cum0 = self._significant_dd(st.planes, st.table, None)
+        off, idx_f, hi_f, lo_f = st.sig.pull()
+        return off, idx_f, hi_f.astype(np.float64) + lo_f.astype(np.float64)
 
     def finalize_batch(self, state) -> list[QueryResult]:
-        """Phase C: compact and pull the significant set, run the descents,
-        evaluate and format on the host."""
-        if len(state) == 9:  # phase-A state: run phase B inline
+        """Phase C: compact and pull the significant set, replay what the
+        double-f32 path cannot prove, run the descents, evaluate and format
+        on the host."""
+        if isinstance(state, _Submitted):  # run phase B inline
             state = self.prepare_batch(state)
         t_start = time.perf_counter()
-        (
-            labels, seqs, exact, n_real, planes, cum, tables64,
-            global_signals, sig, signal_risky,
-        ) = state
+        st = state
+        labels, seqs, exact, n_real = st.labels, st.seqs, st.exact, st.n_real
+        planes, tables64, global_signals = st.planes, st.tables64, st.global_signals
         tax = self.db.taxonomy
         eval_ids = tax.eval_ids
-        st = self.state
+        ds = self.state
 
-        off, idx_f, conf64_f = sig.pull()
+        off, idx_f, conf64_f = self._pull_significant(st)
         self.phase_seconds["finalize_pull"] += time.perf_counter() - t_start
 
         # boundary-risk replay of the global signal in the reference's
         # sequential tip order (src/lineage.rs:86-90)
-        if signal_risky:
+        if st.signal_risky:
             inv_n = 1.0 / self.db.num_tips
-            for b in signal_risky:
+            for b in st.signal_risky:
                 tipp = tables64[b][self._exact_row(b, planes)]
                 global_signals[b] = np.sqrt(
                     np.cumsum((tipp - inv_n) ** 2)[-1]
@@ -369,13 +784,13 @@ class DeviceClassifier:
         total = int(off[n_real]) if n_real else 0
         idx_f = idx_f[:total]
         conf64_f = conf64_f[:total]
-        if st.unit_ptr is not None and total:
+        if ds.unit_ptr is not None and total:
             # expand unit-tip codes (-(tip+2)) into the tip's unit eval
             # nodes — a 1-record species chain yields one entry per level,
             # all with the tip's confidence
             neg = idx_f < -1
             if neg.any():
-                up, uv = st.unit_ptr, st.unit_vals
+                up, uv = ds.unit_ptr, ds.unit_vals
                 tips = np.where(neg, -idx_f - 2, 0)
                 cnt = np.where(neg, up[tips + 1] - up[tips], 1)
                 ends = np.cumsum(cnt)
@@ -400,12 +815,32 @@ class DeviceClassifier:
             # confidences are range sums of normalized probabilities: they
             # must land in [0, 1] up to summation slack (the reference
             # asserts its normalization at src/prob.rs:98)
+            slack = 1e-9 if st.exact_mode else 1e-3
             v = conf64_f
-            if v.min() < -1e-9 or v.max() > 1.0 + 1e-9:
+            if v.min() < -slack or v.max() > 1.0 + slack:
                 raise AssertionError(
                     "debug-checks: node confidence outside [0, 1] "
                     f"(min {v.min()}, max {v.max()})"
                 )
+
+        # Boundary-risk correction: double-f32 confidences within the
+        # recombination error of a half-cent rounding boundary (x.xx5, incl.
+        # the 0.005 significance cutoff) could round differently than the
+        # reference's f64 prefix sums. Recompute those queries' significant
+        # confidences exactly on the host.
+        cum_cache: dict[int, np.ndarray] = {}
+        if total and not st.exact_mode:
+            near = np.abs(((conf64_f * 100.0) % 1.0) - 0.5) < CONF_RISK_MARGIN_SINGLE
+            if near.any():
+                qid = np.repeat(np.arange(n_real), np.diff(off))
+                risky = sorted(set(qid[near].tolist()))
+                self._ensure_cums(risky, st, cum_cache)
+                rs_all, re_all = tax.range_start, tax.range_end
+                for b in risky:
+                    s, e = int(off[b]), int(off[b + 1])
+                    nb = nodes_f[s:e]
+                    cum = cum_cache[b]
+                    conf64_f[s:e] = cum[re_all[nb]] - cum[rs_all[nb]]
 
         # Fallback sites: Inner significant nodes (plus the root) with no
         # rounded-significant child (mirrors evaluate_significant's pruning:
@@ -437,7 +872,25 @@ class DeviceClassifier:
                             sites.append((b, n))
 
         t_descend = time.perf_counter()
-        fallback_map = self._descend(sites, cum)
+        fallback_map = self._resolve_fallbacks(sites, st, cum_cache)
+        if not st.exact_mode:
+            # only queries whose descent margin proved nothing, or whose
+            # confidences sat on a rounding boundary, needed the host. When
+            # they are dense the double-f32 path ships count rows every
+            # batch: "auto" then switches the run to the exact-f64 path,
+            # which needs no wire at all
+            need_host = self._replayed_queries | set(cum_cache)
+            self._fb_dense = len(need_host) * 2 >= max(n_real, 1)
+            if (
+                self._fb_dense
+                and not self._exact_mode
+                and self.significance == "auto"
+            ):
+                self._exact_mode = True
+                log.info(
+                    "dense host-replay pressure (%d/%d queries): switching "
+                    "to the exact-f64 path", len(need_host), n_real,
+                )
         t_eval = time.perf_counter()
         self.phase_seconds["finalize_descend"] += t_eval - t_descend
 

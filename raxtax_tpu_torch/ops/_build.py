@@ -31,7 +31,10 @@ BUILD_DIR = Path(
         Path(__file__).resolve().parent.parent / "build",
     )
 )
-KERNEL_SOURCES = ("fold_planes", "planes_hist", "planes_probs", "exact_cumsum")
+KERNEL_SOURCES = (
+    "fold_planes", "planes_hist", "planes_probs", "exact_cumsum",
+    "fold_sparse", "planes_high", "dd_cumsum",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,4 +1,4 @@
-"""K3, K4 and the small helpers over counter planes.
+"""K3, K4, K6/K7, K8 and the small helpers over counter planes.
 
 ``planes[b, p, s, lane]`` (``int32`` bit patterns) holds bit ``2^p`` of the
 intersection count of the tip at word ``w = s*128 + lane``, bit position
@@ -19,6 +19,20 @@ the dense count matrix never exists on the main path.
   shared memory in one launch and writes bit-major. Bound: bytes, the
   ``B*32*W`` output values dominate.
 
+- :func:`planes_high_counts` — K8, CUDA kernel ``csrc/planes_high.cu``
+  (``rx_planes_high``). Replaces the TPU kernel of ``planes_high_counts``
+  (``ops/planes.py`` of the JAX package): the decoded count where it exceeds
+  15, else 0, bit-major. Bound: bytes, 4 bytes written per tip.
+- :func:`dd_cumsum` (K6) and :func:`dd_cumsum_bitmajor` (K7), CUDA kernel
+  ``csrc/dd_cumsum.cu`` (``rx_dd_cumsum``). Replace the TPU kernels behind
+  ``dd_cumsum_pallas`` and ``dd_cumsum_pallas_bitmajor`` (``_dd_scan_kernel``
+  of the JAX package): the double-f32 inclusive prefix sum along tips, in
+  that kernel's add order, so ``(hi, lo)`` match it bit for bit. K7 reads
+  bit-major input and uses 256-row tiles where K6 uses 1,024: their bits
+  differ on the same data. Bound: bytes, 12 per tip (4 read, 8 written).
+  ``torch.cumsum`` adds in another order and is not their plain version; the
+  plain version is the same add tree written with ``F.pad`` shifts.
+
 Each has its plain PyTorch version beside it; a wrapper takes the plain
 version only for CPU tensors.
 """
@@ -28,6 +42,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -244,3 +259,178 @@ def decode_plane_rows(
     if layout == "flat":
         return c.reshape(len(rows), -1)
     return probs_to_tip_order(c)
+
+
+def planes_high_counts_plain(planes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8: decode every count, keep those above
+    15."""
+    c = decode_counts_bitmajor(planes)
+    return torch.where(c > 15, c, torch.zeros_like(c))
+
+
+def planes_high_counts(
+    planes: torch.Tensor,  # [B, P, S, 128] int32
+) -> torch.Tensor:  # [B, 32, S, 128] int32, bit-major
+    """Overflow counts (count where it exceeds 15, else 0), bit-major: the
+    low nibble of every count travels as the four tier planes, the rare
+    larger counts as an (index, value) list cut from this array
+    (``ops/compress.py``)."""
+    if planes.ndim != 4:
+        raise ValueError("planes must be [B, P, S, 128]")
+    if not planes.is_cuda:
+        return planes_high_counts_plain(planes)
+    _build.require_cuda_tensor(planes, torch.int32, "planes")
+    B, P, S, lanes = planes.shape
+    if P > MAX_PLANES:
+        raise ValueError(f"planes_high_counts: at most {MAX_PLANES} planes")
+    fn = _build.entry(
+        "planes_high", "rx_planes_high",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_void_p],
+    )
+    out = torch.empty(
+        (B, WORD_BITS, S, lanes), dtype=torch.int32, device=planes.device
+    )
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        planes_high_counts.launches += 1
+        code = fn(planes.data_ptr(), out.data_ptr(), B, P, S * lanes, stream)
+    _build.check("planes_high", code, "planes_high_counts")
+    return out
+
+
+#: kernel launches made by :func:`planes_high_counts`
+planes_high_counts.launches = 0
+
+LANES = 128  #: tips per scan row
+DD_TILE_ROWS = 1024  #: rows per tile of the tip-order scan (K6)
+DD_TILE_ROWS_BITMAJOR = 256  #: rows per tile of the bit-major scan (K7)
+
+
+def dd_add2(a_hi, a_lo, b_hi, b_lo):
+    """TwoSum-compensated double-f32 add as the scan uses it: the exact
+    error of ``a_hi + b_hi`` joins the two low words, in this order. Adding
+    ``(0, 0)`` is an exact identity."""
+    s = a_hi + b_hi
+    bb = s - a_hi
+    err = (a_hi - (s - bb)) + (b_hi - bb)
+    return s, err + a_lo + b_lo
+
+
+def dd_cumsum_plain(x: torch.Tensor, tile_rows: int):
+    """Plain PyTorch version of K6 / K7 on tip-order input ``[B, N]``: per
+    tile of ``min(N / 128, tile_rows)`` rows, the shift-in-zero log-step
+    scan along the 128 lanes, the same over the row totals, the exclusive
+    row offset, then the carry from the previous tile."""
+    B, N = x.shape
+    nr = N // LANES
+    rows = min(nr, tile_rows)
+    x3 = x.reshape(B, nr, LANES)
+    out_hi = torch.empty_like(x3)
+    out_lo = torch.empty_like(x3)
+    c_hi = torch.zeros((B, 1, 1), dtype=x.dtype, device=x.device)
+    c_lo = torch.zeros_like(c_hi)
+    for r0 in range(0, nr, rows):
+        hi = x3[:, r0 : r0 + rows]
+        n_valid = hi.shape[1]
+        if n_valid < rows:  # partial last tile: rows past the end are zero
+            hi = F.pad(hi, (0, 0, 0, rows - n_valid))
+        lo = torch.zeros_like(hi)
+        k = 1
+        while k < LANES:
+            sh_hi = F.pad(hi, (k, 0))[:, :, :LANES]
+            sh_lo = F.pad(lo, (k, 0))[:, :, :LANES]
+            hi, lo = dd_add2(hi, lo, sh_hi, sh_lo)
+            k <<= 1
+        rt_hi = hi[:, :, LANES - 1 :]
+        rt_lo = lo[:, :, LANES - 1 :]
+        k = 1
+        while k < rows:
+            rt_hi2 = F.pad(rt_hi, (0, 0, k, 0))[:, :rows]
+            rt_lo2 = F.pad(rt_lo, (0, 0, k, 0))[:, :rows]
+            rt_hi, rt_lo = dd_add2(rt_hi, rt_lo, rt_hi2, rt_lo2)
+            k <<= 1
+        off_hi = F.pad(rt_hi, (0, 0, 1, 0))[:, :rows]
+        off_lo = F.pad(rt_lo, (0, 0, 1, 0))[:, :rows]
+        hi, lo = dd_add2(hi, lo, off_hi, off_lo)
+        hi, lo = dd_add2(hi, lo, c_hi, c_lo)
+        out_hi[:, r0 : r0 + n_valid] = hi[:, :n_valid]
+        out_lo[:, r0 : r0 + n_valid] = lo[:, :n_valid]
+        c_hi = hi[:, rows - 1 :, LANES - 1 :]
+        c_lo = lo[:, rows - 1 :, LANES - 1 :]
+    return out_hi.reshape(B, N), out_lo.reshape(B, N)
+
+
+_DD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _dd_scan(x: torch.Tensor, bitmajor: bool, counter):
+    """Shared body of K6 / K7: checks, the plain version for a CPU tensor,
+    the launch for a CUDA one. The outputs are ``[B, N + 1]`` with a leading
+    zero column, as the confidences' range sums read them (the kernel writes
+    at column 1, so no padded copy is made)."""
+    if x.dtype != torch.float32:
+        raise TypeError("the double-f32 scan expects float32 input")
+    if bitmajor:
+        if x.ndim != 4 or x.shape[1] != WORD_BITS or x.shape[3] != LANES:
+            raise ValueError("bit-major input must be [B, 32, S, 128]")
+        B = x.shape[0]
+        N = x.shape[1] * x.shape[2] * x.shape[3]
+        tile_rows = DD_TILE_ROWS_BITMAJOR
+    else:
+        if x.ndim != 2 or x.shape[1] == 0 or x.shape[1] % LANES:
+            raise ValueError(
+                "tip-order input must be [B, N] with N a positive multiple "
+                "of 128"
+            )
+        B, N = x.shape
+        tile_rows = DD_TILE_ROWS
+    rows = min(N // LANES, tile_rows)
+    if not x.is_cuda:
+        flat = probs_to_tip_order(x) if bitmajor else x
+        hi, lo = dd_cumsum_plain(flat, tile_rows)
+        return F.pad(hi, (1, 0)), F.pad(lo, (1, 0))
+    _build.require_cuda_tensor(x, torch.float32, "probs")
+    fn = _build.entry("dd_cumsum", "rx_dd_cumsum", _DD_ARGTYPES)
+    hi = torch.empty((B, N + 1), dtype=torch.float32, device=x.device)
+    lo = torch.empty_like(hi)
+    hi[:, 0] = 0.0
+    lo[:, 0] = 0.0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        counter.launches += 1
+        code = fn(
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), B, N, rows,
+            int(bitmajor), N + 1, 1, stream,
+        )
+    _build.check("dd_cumsum", code, counter.__name__)
+    return hi, lo
+
+
+def dd_cumsum(probs: torch.Tensor):
+    """K6: double-f32 zero-prefixed prefix sum of ``[B, N]`` f32 along tips
+    (``N % 128 == 0``). Returns ``(hi, lo)``, each ``[B, N + 1]`` with column
+    0 zero and column ``n + 1`` the sum of tips ``0..n``;
+    ``float64(hi) + float64(lo)`` tracks the exact prefix sum to about
+    ``2**-48``."""
+    return _dd_scan(probs, False, dd_cumsum)
+
+
+#: kernel launches made by :func:`dd_cumsum`
+dd_cumsum.launches = 0
+
+
+def dd_cumsum_bitmajor(probs_bm: torch.Tensor):
+    """K7: the same prefix sum in TIP order of the packed layout, fed the
+    bit-major ``[B, 32, S, 128]`` probabilities K4 emits, so the global
+    permute to tip order is never made. Returns ``(hi, lo)``, each
+    ``[B, S*128*32 + 1]`` with the leading zero column."""
+    return _dd_scan(probs_bm, True, dd_cumsum_bitmajor)
+
+
+#: kernel launches made by :func:`dd_cumsum_bitmajor`
+dd_cumsum_bitmajor.launches = 0

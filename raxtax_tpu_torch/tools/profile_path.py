@@ -2,6 +2,7 @@
 classify loop on a synthetic world.
 
     python -m raxtax_tpu_torch.tools.profile_path --refs 1000000 --batches 6
+    python -m raxtax_tpu_torch.tools.profile_path --significance dd --fold sparse
 
 Prints one JSON object: wall seconds of the profiled window, the device's
 busy milliseconds and idle share in it, host seconds per engine phase, and
@@ -19,11 +20,61 @@ from collections import deque
 from types import SimpleNamespace
 
 
+def drive(clf, queries, B: int) -> int:
+    """The three-deep submit / prepare / finalize loop over ``queries`` in
+    batches of ``B``; returns the number of queries classified."""
+    done = 0
+    prepared: deque = deque()
+    for lo in range(0, len(queries), B):
+        st = clf.submit_batch(queries[lo : lo + B])
+        if len(prepared) >= 2:
+            done += len(clf.finalize_batch(prepared.popleft()))
+        prepared.append(clf.prepare_batch(st))
+    while prepared:
+        done += len(clf.finalize_batch(prepared.popleft()))
+    return done
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def warm_classifier(db, queries, B: int, significance: str, fold: str,
+                    bm_scan: bool = False):
+    """A classifier of ``db`` in the given mode on the GPU, after one
+    warm-up batch (kernels built, allocator warm, sticky flips taken), with
+    its phase clocks at zero."""
+    import torch
+
+    from ..engine.classify import make_classifier
+
+    args = SimpleNamespace(
+        backend="auto", device="cuda", batch_size=B, debug_checks=False,
+        tsv=True, skip_exact_matches=False, raw_confidence=False,
+        significance=significance, fold=fold, bm_scan=bm_scan,
+    )
+    clf = make_classifier(db, args, n_queries_hint=len(queries))
+    clf.classify_batch(queries[:B])
+    torch.cuda.synchronize()
+    for k in clf.phase_seconds:
+        clf.phase_seconds[k] = 0.0
+    return clf
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--refs", type=int, default=1_000_000)
     ap.add_argument("--batches", type=int, default=6)
     ap.add_argument("--batch-size", type=int, default=256)
+    ap.add_argument("--significance", choices=["exact", "dd", "auto"],
+                    default="exact", help="the engine's significance mode")
+    ap.add_argument("--fold", choices=["dense", "sparse"], default="dense")
+    ap.add_argument("--bm-scan", action="store_true",
+                    help="dd mode: the bit-major scan (packed layout)")
     ap.add_argument("--trace", default="", help="also write a chrome trace here")
     a = ap.parse_args(argv)
 
@@ -33,36 +84,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_path: no CUDA device available", file=sys.stderr)
         return 1
-    from ..engine.classify import make_classifier
     from .synth import build_world
 
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    gpu = gpu_line()
     B = a.batch_size
     db, queries, build_s = build_world(a.refs, B * (a.batches + 1))
-    args = SimpleNamespace(
-        backend="auto", device="cuda", batch_size=B, debug_checks=False,
-        tsv=True, skip_exact_matches=False, raw_confidence=False,
-    )
-    clf = make_classifier(db, args, n_queries_hint=len(queries))
-    clf.classify_batch(queries[:B])  # warm-up: kernels built, allocator warm
-    torch.cuda.synchronize()
-    for k in clf.phase_seconds:
-        clf.phase_seconds[k] = 0.0
+    if a.bm_scan:
+        from ..db.database import ensure_kmer_layout
 
-    done = 0
+        db = ensure_kmer_layout(db, "packed")
+    clf = warm_classifier(db, queries, B, a.significance, a.fold, a.bm_scan)
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        prepared: deque = deque()
-        for lo in range(B, len(queries), B):
-            st = clf.submit_batch(queries[lo : lo + B])
-            if len(prepared) >= 2:
-                done += len(clf.finalize_batch(prepared.popleft()))
-            prepared.append(clf.prepare_batch(st))
-        while prepared:
-            done += len(clf.finalize_batch(prepared.popleft()))
+        done = drive(clf, queries[B:], B)
         torch.cuda.synchronize()
         wall_s = time.time() - t0
     if a.trace:
@@ -85,6 +120,8 @@ def main(argv=None) -> int:
     busy_ms = sum(r[1] for r in rows)
     out = {
         "gpu": gpu, "refs": a.refs, "batch": B, "batches": a.batches,
+        "significance": a.significance, "fold": a.fold, "bm_scan": a.bm_scan,
+        "fold_still_sparse": bool(clf._sparse), "host_replays": clf.host_replays,
         "queries": done, "db_build_s": round(build_s, 2),
         "wall_s": wall_s, "queries_per_s": done / wall_s,
         "device_busy_ms": busy_ms if rows else "not measured",

@@ -153,3 +153,34 @@ def test_version_and_usage_errors(tmp_path, capsys):
         main(["-d", str(REFS), "-o", str(tmp_path / "o"), "--only-db", "--skip-db"])
     assert e.value.code == 2
     assert main(["-d", str(REFS), "-o", str(tmp_path / "o"), "--device", "cpu"]) != 0
+
+
+@pytest.mark.parametrize(
+    "env,want",
+    [
+        ({}, ("exact", "dense", False)),
+        ({"RAXTAX_EXACT": "1", "RAXTAX_SPARSE_FOLD": "0"}, ("exact", "dense", False)),
+        ({"RAXTAX_EXACT": "0", "RAXTAX_SPARSE_FOLD": "1"}, ("dd", "sparse", False)),
+        ({"RAXTAX_EXACT": "auto", "RAXTAX_BM_SCAN": "1"}, ("auto", "dense", True)),
+    ],
+)
+def test_engine_mode_from_the_jax_environment_names(env, want):
+    from raxtax_tpu_torch.cli import engine_mode_from_env
+
+    got = engine_mode_from_env(env)
+    assert (got["significance"], got["fold"], got["bm_scan"]) == want
+    with pytest.raises(ValueError):
+        engine_mode_from_env({"RAXTAX_EXACT": "yes"})
+
+
+@pytest.mark.parametrize("bm_scan", ["", "1"])
+def test_golden_bytes_in_dd_mode_through_the_environment(tmp_path, monkeypatch, bm_scan):
+    """``RAXTAX_EXACT=0 RAXTAX_SPARSE_FOLD=1`` select the double-f32 path
+    with the sparse fold from the command line: same golden bytes."""
+    monkeypatch.setenv("RAXTAX_EXACT", "0")
+    monkeypatch.setenv("RAXTAX_SPARSE_FOLD", "1")
+    monkeypatch.setenv("RAXTAX_BM_SCAN", bm_scan)
+    out = tmp_path / "out"
+    assert run_cli(out, "--tsv", "--debug-checks") == 0
+    assert (out / "raxtax.out").read_bytes() == (DATA / "golden_raxtax.out").read_bytes()
+    assert (out / "raxtax.tsv").read_bytes() == (DATA / "golden_raxtax.tsv").read_bytes()

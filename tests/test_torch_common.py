@@ -8,6 +8,13 @@ from raxtax_tpu_torch.convert import database_fields, database_from_numpy
 
 TIPS_PER_WORD = 32
 
+# The parity tests run at small shapes, many of them side by side in worker
+# processes; PyTorch's intra-op pool (one thread per core in every process)
+# would then oversubscribe the cores and spin. One thread per process is the
+# fastest setting for these sizes. Every worker imports this module when it
+# collects the tests, so the setting holds for the port's whole test run.
+torch.set_num_threads(1)
+
 
 def port_db(jax_db):
     """The port's Database carrying the JAX package's state."""

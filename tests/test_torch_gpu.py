@@ -73,3 +73,89 @@ def test_cumsum_kernel_equals_plain_and_numpy(cuda):
     assert torch.equal(got.view(torch.int64), exact_cumsum_plain(d).view(torch.int64))
     want = np.concatenate([np.zeros((11, 1)), np.cumsum(p, axis=1)], axis=1)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), want.view(np.uint64))
+
+
+def test_sparse_fold_kernel_equals_plain_and_dense(cuda):
+    from raxtax_tpu_torch.ops import intersect_fold as tf
+
+    rng = np.random.default_rng(3)
+    n_blocks = 3
+    km = np.zeros((65537, n_blocks * tf.BLOCK_WORDS), np.uint32)
+    used = rng.choice(65536, size=200, replace=False)
+    for k in used:
+        for blk in rng.choice(n_blocks, size=rng.integers(1, 4), replace=False):
+            pos = rng.choice(tf.BLOCK_WORDS, size=80, replace=False)
+            km[k, blk * tf.BLOCK_WORDS + pos] |= rng.integers(
+                0, 1 << 32, size=80, dtype=np.uint64
+            ).astype(np.uint32)
+    nz = km.reshape(65537, n_blocks, -1).any(axis=2)
+    blk_ptr = np.zeros(65538, np.int64)
+    np.cumsum(nz.sum(axis=1), out=blk_ptr[1:])
+    blk_ids = np.nonzero(nz)[1].astype(np.int32)
+    kc = np.array([0, 5, 16, 17, 100, 128], np.int32)
+    idx = np.full((6, 128), 65536, np.int32)
+    for b, k in enumerate(kc):
+        idx[b, :k] = np.sort(rng.choice(used, k, replace=False))
+    pair_kmer, pair_blk, _, totals = tf.build_pairs(idx, blk_ptr, blk_ids, 1 << 20)
+    km3 = torch.from_numpy(km.view(np.int32)).reshape(65537, -1, 128).to(cuda)
+    args = [torch.from_numpy(pair_kmer).to(cuda), torch.from_numpy(pair_blk).to(cuda),
+            torch.from_numpy(totals.astype(np.int32)).to(cuda), km3]
+    got = tf.fold_planes_sparse(*args, max_count=128)
+    assert torch.equal(got, tf.fold_planes_sparse_plain(*args, got.shape[1]))
+    dense = tf.fold_planes(
+        torch.from_numpy(idx).to(cuda), torch.from_numpy(kc).to(cuda), km3,
+        max_count=128,
+    )
+    assert torch.equal(got, dense)
+
+
+def test_high_counts_kernel_equals_plain(cuda):
+    from raxtax_tpu_torch.ops import planes as pl
+
+    rng = np.random.default_rng(4)
+    p = _planes(rng, 3, 9, 3)
+    p[:, 5:] &= p[:, 4:5] & p[:, 3:4]  # counts above 15 on a share of tips
+    p = p.to(cuda)
+    got = pl.planes_high_counts(p)
+    assert torch.equal(got, pl.planes_high_counts_plain(p))
+    assert bool((got > 15).any()) and bool((got == 0).any())
+
+
+def _dd_inputs(rng, shape):
+    return torch.from_numpy(
+        (rng.random(shape) * 10.0 ** rng.integers(-9, -1, shape)).astype(np.float32)
+    )
+
+
+def test_dd_cumsum_kernel_equals_plain(cuda):
+    """K6 against the same add tree in plain PyTorch, both words bit for
+    bit: below a tile, a whole tile, and a partial last tile."""
+    from raxtax_tpu_torch.ops import planes as pl
+
+    rng = np.random.default_rng(5)
+    for n_rows in (3, 1024, 1024 + 300):
+        x = _dd_inputs(rng, (5, n_rows * 128)).to(cuda)
+        hz, lz = pl.dd_cumsum(x)
+        assert not bool(hz[:, 0].any()) and not bool(lz[:, 0].any())
+        hi, lo = hz[:, 1:].contiguous(), lz[:, 1:].contiguous()
+        p_hi, p_lo = pl.dd_cumsum_plain(x, pl.DD_TILE_ROWS)
+        assert torch.equal(hi.view(torch.int32), p_hi.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), p_lo.view(torch.int32))
+        want = np.cumsum(x.cpu().numpy().astype(np.float64), axis=1)
+        got = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+        assert np.abs(got - want).max() < 1e-11
+
+
+def test_dd_cumsum_bitmajor_kernel_equals_plain(cuda):
+    from raxtax_tpu_torch.ops import planes as pl
+
+    rng = np.random.default_rng(6)
+    for S in (1, 8, 11):
+        x = _dd_inputs(rng, (4, 32, S, 128)).to(cuda)
+        hz, lz = pl.dd_cumsum_bitmajor(x)
+        assert not bool(hz[:, 0].any()) and not bool(lz[:, 0].any())
+        hi, lo = hz[:, 1:].contiguous(), lz[:, 1:].contiguous()
+        flat = pl.probs_to_tip_order(x).contiguous()
+        p_hi, p_lo = pl.dd_cumsum_plain(flat, pl.DD_TILE_ROWS_BITMAJOR)
+        assert torch.equal(hi.view(torch.int32), p_hi.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), p_lo.view(torch.int32))

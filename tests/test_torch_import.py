@@ -109,6 +109,9 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(planes, "planes_histogram_plain", boom)
     monkeypatch.setattr(planes, "planes_probs_plain", boom)
     monkeypatch.setattr(intersect_fold, "fold_planes_plain", boom)
+    monkeypatch.setattr(intersect_fold, "fold_planes_sparse_plain", boom)
+    monkeypatch.setattr(planes, "planes_high_counts_plain", boom)
+    monkeypatch.setattr(planes, "dd_cumsum_plain", boom)
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a GPU")
     p = torch.zeros((2, 8), dtype=torch.float64).as_subclass(FakeCuda)
@@ -125,3 +128,14 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     km = torch.zeros((65537, 1, 128), dtype=torch.int32).as_subclass(FakeCuda)
     with pytest.raises((RuntimeError, ValueError, TypeError)):
         intersect_fold.fold_planes(idx, kc, km)
+    km8 = torch.zeros((65537, 8, 128), dtype=torch.int32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        intersect_fold.fold_planes_sparse(idx, idx, kc, km8, max_count=32)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        planes.planes_high_counts(pl)
+    x = torch.zeros((2, 256), dtype=torch.float32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        planes.dd_cumsum(x)
+    xb = torch.zeros((2, 32, 1, 128), dtype=torch.float32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        planes.dd_cumsum_bitmajor(xb)
