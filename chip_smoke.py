@@ -5,7 +5,7 @@ Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 NVIDIA Hopper GPU, the CUDA toolkit (``nvcc``) and PyTorch built for CUDA.
 It needs no arguments, no network and no JAX. It
 
-1. builds the seven CUDA sources (eight kernels) from
+1. builds the nine CUDA sources (ten kernels) from
    ``raxtax_tpu_torch/csrc`` (``env``),
 2. drives the exact-f64 classify path end to end on a 65,536-reference
    synthetic database through ``run_queries`` and checks the output files
@@ -13,14 +13,24 @@ It needs no arguments, no network and no JAX. It
 3. drives the double-f32 path with the sparse fold on the same database the
    same way, plus one short run each with the bit-major scan and with
    ``significance="auto"`` (``path_65k_dd``),
-4. builds the 1,000,000-reference database (or the largest of 1M / 500k /
+4. drives the other ways to make the counts on that database, each against
+   the oracle and through every flag combination: the stream fold
+   (``path_65k_stream``), the gathered-rows fold (``path_65k_gathered``) and
+   the dense count matrix of the ``xla`` backend, once more with its
+   single-tip split (``path_65k_xla``),
+5. builds the 1,000,000-reference database (or the largest of 1M / 500k /
    200k that fits the time budget) and drives the exact path at that size
-   against the oracle (``path_1m``),
-5. runs each kernel at that size against its plain PyTorch version, bit for
-   bit, and times both (``kernels``),
-6. drives the double-f32 path at that size, checks it against the oracle and
+   against the oracle (``path_1m``), then the same path with the stream fold
+   (``path_1m_stream``) and, for two batches, with the gathered fold
+   (``path_1m_gathered``),
+6. runs each kernel at that size against its plain PyTorch version, bit for
+   bit — the gathered and the stream fold also against the dense fold — and
+   times both (``kernels``),
+7. drives the double-f32 path at that size, checks it against the oracle and
    reports throughput, phase times, peak memory, pairs per query, host
-   replays and whether the fold flipped to dense (``path_1m_dd``).
+   replays and whether the fold flipped to dense (``path_1m_dd``),
+8. drives the dense-count backend at that size for two batches, where its
+   scan takes the pairwise tree (``path_1m_xla``).
 
 Each phase prints one JSON line; the ``kernels`` line carries, per kernel,
 its launches on the main path that runs it, its time, its plain version's
@@ -70,9 +80,11 @@ def remaining() -> float:
 
 
 def build_world(n_refs: int):
+    """The synthetic world with both bit matrices: the folds read the
+    k-mer-major one, the dense-count backend the ref-major one."""
     from raxtax_tpu_torch.tools.synth import build_world as build
 
-    return build(n_refs, N_QUERIES)
+    return build(n_refs, N_QUERIES, with_ref_major=True)
 
 
 # -- helpers ---------------------------------------------------------------
@@ -104,15 +116,20 @@ def max_abs_err(a, b) -> float:
 
 
 def args_for(skip: bool = False, raw: bool = False, dd: bool = False,
-             significance: str | None = None, bm_scan: bool = False):
+             significance: str | None = None, bm_scan: bool = False,
+             backend: str = "auto", fold: str | None = None,
+             split_sig: bool = False):
     """The parsed command line of ``raxtax-torch --tsv --batch-size 256
     --debug-checks`` (output prefix and database path are set per run).
-    ``dd`` is what ``RAXTAX_EXACT=0 RAXTAX_SPARSE_FOLD=1`` select."""
+    ``dd`` is what ``RAXTAX_EXACT=0 RAXTAX_SPARSE_FOLD=1`` select, ``fold``
+    what ``RAXTAX_FUSED_GATHER=0`` or ``--backend stream`` select,
+    ``backend="xla"`` the dense-count backend."""
     return SimpleNamespace(
-        backend="auto", device="cuda", batch_size=BATCH, debug_checks=True,
+        backend=backend, device="cuda", batch_size=BATCH, debug_checks=True,
         tsv=True, skip_exact_matches=skip, raw_confidence=raw, redo=True,
         significance=significance or ("dd" if dd else "exact"),
-        fold="sparse" if dd else "dense", bm_scan=bm_scan,
+        fold=fold or ("sparse" if dd else "dense"), bm_scan=bm_scan,
+        split_sig=split_sig,
     )
 
 
@@ -146,22 +163,36 @@ def run_path(db, queries, args, classifier=None):
     return outs, tsvs, dt
 
 
+#: the oracle's answers, kept per (database, query, flags): several paths
+#: are held to the same queries
+_ORACLE: dict = {}
+
+
 def check_oracle(db, queries, outs, tsvs, n: int, skip=False, raw=False):
     from raxtax_tpu_torch.models.oracle import OracleClassifier
 
     orc = OracleClassifier(db, skip_exact_matches=skip, raw_confidence=raw)
     for label, seq in queries[:n]:
-        want = orc.classify(label, seq)
-        if outs[label] != want.out_string():
+        key = (db.num_tips, label, seq.tobytes(), skip, raw)
+        if key not in _ORACLE:
+            want = orc.classify(label, seq)
+            _ORACLE[key] = (want.out_string(), want.tsv_string())
+        want_out, want_tsv = _ORACLE[key]
+        if outs[label] != want_out:
             raise AssertionError(f"raxtax.out differs from the oracle: {label}")
-        if tsvs and tsvs[label] != want.tsv_string():
+        if tsvs and tsvs[label] != want_tsv:
             raise AssertionError(f"raxtax.tsv differs from the oracle: {label}")
     return n
 
 
 def launch_counts():
     from raxtax_tpu_torch.ops.exactscan import exact_cumsum
-    from raxtax_tpu_torch.ops.intersect_fold import fold_planes, fold_planes_sparse
+    from raxtax_tpu_torch.ops.intersect_fold import (
+        fold_planes,
+        fold_planes_gathered,
+        fold_planes_sparse,
+    )
+    from raxtax_tpu_torch.ops.intersect_stream import fold_planes_stream
     from raxtax_tpu_torch.ops.planes import (
         dd_cumsum,
         dd_cumsum_bitmajor,
@@ -176,12 +207,22 @@ def launch_counts():
         "fold_planes_sparse": fold_planes_sparse,
         "planes_high": planes_high_counts, "dd_cumsum": dd_cumsum,
         "dd_cumsum_bitmajor": dd_cumsum_bitmajor,
+        "fold_planes_gathered": fold_planes_gathered,
+        "fold_planes_stream": fold_planes_stream,
     }
 
 
 #: the kernels each mode's main path runs
 EXACT_PATH = ("fold_planes", "planes_hist", "planes_probs", "exact_cumsum")
 DD_PATH = ("planes_hist", "planes_probs", "planes_high", "dd_cumsum")
+AFTER_FOLD = EXACT_PATH[1:]
+#: every kernel that folds postings or reads counter planes: the dense-count
+#: backend launches none of them
+PLANES_KERNELS = (
+    "fold_planes", "fold_planes_sparse", "fold_planes_gathered",
+    "fold_planes_stream", "planes_hist", "planes_probs", "planes_high",
+    "exact_cumsum", "dd_cumsum_bitmajor",
+)
 
 
 def reset_counts() -> None:
@@ -214,9 +255,10 @@ def phase_env() -> dict:
     }
 
 
-def flag_combos(db, queries, dd: bool) -> list[dict]:
-    """Every flag combination on one batch; half of the compared queries are
-    exact copies of references, so the exact-match policy is exercised."""
+def flag_combos(db, queries, **mode) -> list[dict]:
+    """Every flag combination on one batch, in the engine mode ``mode``
+    (arguments of :func:`args_for`); half of the compared queries are exact
+    copies of references, so the exact-match policy is exercised."""
     from raxtax_tpu_torch.engine.classify import make_classifier
 
     combos = []
@@ -226,7 +268,7 @@ def flag_combos(db, queries, dd: bool) -> list[dict]:
             for j in range(4):
                 tip = (j * 7919) % db.num_tips
                 batch[j] = (f"x{j}", np.array(db.sequence(tip)))
-            a = args_for(skip=skip, raw=raw, dd=dd)
+            a = args_for(skip=skip, raw=raw, **mode)
             clf = make_classifier(db, a, n_queries_hint=len(batch))
             res = clf.classify_batch(batch)
             o = {r.label: r.out_string() for r in res}
@@ -247,7 +289,7 @@ def phase_path_65k(db, queries, build_s: float) -> dict:
     checked = check_oracle(db, queries, outs, tsvs, 16)
     if min(counts[k] for k in EXACT_PATH) <= 0:
         raise AssertionError(f"path_65k: a kernel was never launched: {counts}")
-    combos = flag_combos(db, queries, dd=False)
+    combos = flag_combos(db, queries)
     return {
         "phase": "path_65k", "refs": 65536, "queries": len(queries),
         "batch": BATCH, "db_build_s": round(build_s, 2),
@@ -533,6 +575,213 @@ def phase_path_65k_dd(db, queries):
     return line, k7
 
 
+def phase_path_65k_fold(db, queries, fold: str) -> dict:
+    """The exact-f64 path with the stream or the gathered fold at 65,536
+    references: all queries against the oracle, every flag combination, and
+    the launch counts (the fold's kernel every batch, K1 never)."""
+    kernel = {"stream": "fold_planes_stream", "gathered": "fold_planes_gathered"}[fold]
+    phase = f"path_65k_{fold}"
+    n_batches = -(-len(queries) // BATCH)
+    reset_counts()
+    outs, tsvs, dt = run_path(db, queries, args_for(fold=fold))
+    counts = read_counts()
+    if set(outs) != {l for l, _ in queries}:
+        raise AssertionError(f"{phase}: not every query has output lines")
+    checked = check_oracle(db, queries, outs, tsvs, 16)
+    if counts[kernel] < n_batches or counts["fold_planes"] or counts["fold_planes_sparse"]:
+        raise AssertionError(f"{phase}: fold launches {counts}")
+    if min(counts[k] for k in AFTER_FOLD) < n_batches:
+        raise AssertionError(f"{phase}: a kernel was never launched: {counts}")
+    combos = flag_combos(db, queries, fold=fold)
+    return {
+        "phase": phase, "refs": db.num_tips, "queries": len(queries),
+        "batch": BATCH, "pass_s": round(dt, 3),
+        "queries_per_s": round(len(queries) / dt, 2),
+        "oracle_checked": checked, "flag_combos": combos, "launches": counts,
+    }
+
+
+def check_dense_launches(phase: str, counts: dict, n_batches: int, scan: bool):
+    """The dense-count backend builds no planes: none of their kernels may
+    run, and its scan is K6 exactly when the tip count is a multiple of
+    128."""
+    ran = {k: counts[k] for k in PLANES_KERNELS if counts[k]}
+    if ran:
+        raise AssertionError(f"{phase}: planes kernels launched: {ran}")
+    if scan and counts["dd_cumsum"] < n_batches:
+        raise AssertionError(f"{phase}: dd_cumsum launched {counts['dd_cumsum']} times")
+    if not scan and counts["dd_cumsum"]:
+        raise AssertionError(f"{phase}: dd_cumsum launched on an unaligned width")
+
+
+def phase_path_65k_xla(db, queries) -> dict:
+    """The dense-count backend at 65,536 references (a multiple of 128, so
+    its scan is K6): all queries, every flag combination, and a short run
+    with the single-tip split."""
+    from raxtax_tpu_torch.engine.classify import make_classifier
+
+    n_batches = -(-len(queries) // BATCH)
+    a = args_for(backend="xla")
+    clf = make_classifier(db, a, n_queries_hint=len(queries))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    outs, tsvs, dt = run_path(db, queries, a, classifier=clf)
+    counts = read_counts()
+    if set(outs) != {l for l, _ in queries}:
+        raise AssertionError("path_65k_xla: not every query has output lines")
+    checked = check_oracle(db, queries, outs, tsvs, 16)
+    check_dense_launches("path_65k_xla", counts, n_batches, scan=True)
+    line = {
+        "phase": "path_65k_xla", "refs": db.num_tips, "queries": len(queries),
+        "batch": BATCH, "pass_s": round(dt, 3),
+        "queries_per_s": round(len(queries) / dt, 2),
+        "oracle_checked": checked, "launches": counts,
+        "host_replays": clf.host_replays, "nibble_wire": bool(clf._fb_dense),
+        "peak_gpu_bytes": int(torch.cuda.max_memory_allocated()),
+        "phase_ms_per_batch": {
+            k: round(v * 1e3 / n_batches, 2) for k, v in clf.phase_seconds.items()
+        },
+    }
+    del clf
+    line["flag_combos"] = flag_combos(db, queries, backend="xla")
+    short = queries[: 2 * BATCH]
+    a = args_for(backend="xla", split_sig=True)
+    clf = make_classifier(db, a, n_queries_hint=len(short))
+    if clf.state.split_sig is None:
+        raise AssertionError("path_65k_xla: split_sig did not reach the engine")
+    reset_counts()
+    outs, tsvs, _ = run_path(db, short, a, classifier=clf)
+    counts = read_counts()
+    check_oracle(db, short, outs, tsvs, 8)
+    check_dense_launches("path_65k_xla split_sig", counts, 2, scan=True)
+    line["split_sig"] = {"queries": len(short), "checked": 8, "launches": counts}
+    del clf
+    torch.cuda.empty_cache()
+    return line
+
+
+def fold_variants(state, queries, k1_planes, inputs) -> list[dict]:
+    """K9 and K10 at the large database's shapes against their plain
+    versions and against K1's planes of the same batch, bit for bit, with
+    times and bounds; the gather and the pair sort are timed beside them."""
+    from raxtax_tpu_torch.ops import intersect_fold as fo
+    from raxtax_tpu_torch.ops import intersect_stream as st
+
+    kmer_idx, ks, k_pad, flat_k, off_k = inputs
+    dev = state.device
+    km3 = state.kmer_major3
+    S = int(km3.shape[1])
+    W = S * 128
+    P = int(k1_planes.shape[1])
+    d_idx = torch.from_numpy(kmer_idx).to(dev)
+    out = []
+
+    # K9: one launch is one chunk of the batch under the gather budget ------
+    b_sub = fo.gather_chunk(BATCH, k_pad, W * 4)
+    n_chunks = -(-BATCH // b_sub)
+    for lo in range(0, BATCH, b_sub):  # every chunk against K1's planes
+        rows = km3.index_select(0, d_idx[lo : lo + b_sub].reshape(-1).long())
+        got = fo.fold_planes_gathered(rows, rows.shape[0] // k_pad, P - 4)
+        if not bits_equal(got, k1_planes[lo : lo + b_sub]):
+            raise AssertionError("fold_planes_gathered differs from fold_planes")
+        del got
+    torch.cuda.synchronize()
+    ids = d_idx[:b_sub].reshape(-1).long()
+    rows = km3.index_select(0, ids)
+    t0 = time.time()
+    plain = fo.fold_planes_gathered_plain(rows, b_sub, P - 4)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    got = fo.fold_planes_gathered(rows, b_sub, P - 4)
+    if not bits_equal(got, plain):
+        raise AssertionError("fold_planes_gathered differs from its plain version")
+    err = max_abs_err(got, plain)
+    del plain, got
+    ms = cuda_ms(lambda: fo.fold_planes_gathered(rows, b_sub, P - 4))
+    del rows
+    gather_ms = cuda_ms(lambda: km3.index_select(0, ids))
+    batch_ms = cuda_ms(lambda: fo.intersection_planes_gathered(
+        d_idx, km3, max_count=k_pad))
+    launch_bytes = b_sub * k_pad * W * 4 + b_sub * P * W * 4
+    t_bytes = launch_bytes / PEAK_BYTES_PER_S
+    t_ops = b_sub * k_pad * W * 6 / PEAK_INT32_OPS
+    out.append({
+        "name": "fold_planes_gathered", "route": "cuda",
+        "source": "raxtax_tpu_torch/csrc/fold_rows.cu",
+        "replaces": "raxtax_tpu/ops/intersect_pallas.py:57",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": {"rows": [b_sub * k_pad, S, 128], "queries": b_sub,
+                  "k_pad": k_pad, "W": W, "P": P},
+        "bits_equal_fold_planes": True,
+        "launches_per_batch": n_chunks,
+        "index_select_ms": gather_ms,  # beside the kernel, not inside it
+        "batch_ms_gather_and_fold": batch_ms,
+        "batch_bound_ms": n_chunks * max(t_bytes, t_ops) * 1e3,
+        "gathered_bytes_per_launch": b_sub * k_pad * W * 4,
+    })
+
+    # K10 --------------------------------------------------------------------
+    group = st.stream_group_size(BATCH, P)
+    if st.n_planes_for(k_pad) != P:
+        raise AssertionError("the stream fold sizes another plane count")
+    pairs = st.build_pairs(d_idx, group)
+    got = st.fold_planes_stream(*pairs, km3, BATCH, group, P)
+    torch.cuda.synchronize()
+    if not bits_equal(got, k1_planes):
+        raise AssertionError("fold_planes_stream differs from fold_planes")
+    t0 = time.time()
+    plain = st.fold_planes_stream_plain(pairs[0], pairs[1], km3, BATCH, P)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    if not bits_equal(got, plain):
+        raise AssertionError("fold_planes_stream differs from its plain version")
+    err = max_abs_err(got, plain)
+    del plain, got
+    ms = cuda_ms(lambda: st.fold_planes_stream(*pairs, km3, BATCH, group, P))
+    sort_ms = cuda_ms(lambda: st.build_pairs(d_idx, group))
+    # the same batch with fewer and with more queries per CTA: the walk of a
+    # group's pairs is serial, so the time grows with the group, while a
+    # smaller group re-reads more rows from L2
+    by_group = {}
+    for g in sorted({1, 2, group, 2 * group, 4 * group}):
+        alt = st.build_pairs(d_idx, g)
+        if not bits_equal(st.fold_planes_stream(*alt, km3, BATCH, g, P), k1_planes):
+            raise AssertionError(f"fold_planes_stream, groups of {g}: wrong planes")
+        by_group[g] = cuda_ms(
+            lambda: st.fold_planes_stream(*alt, km3, BATCH, g, P))
+    uniq_rows = int(np.unique(flat_k[: off_k[BATCH]]).size)
+    n_pairs = int(ks.sum())
+    out_bytes = BATCH * P * W * 4
+    small = 2 * pairs[0].numel() * 4 + 2 * pairs[2].numel() * 4
+    t_bytes = (uniq_rows * W * 4 + out_bytes + small) / PEAK_BYTES_PER_S
+    # a pair ripples only where its row word is set; the zero test alone is
+    # one operation per word and pair
+    t_ops = n_pairs * W / PEAK_INT32_OPS
+    out.append({
+        "name": "fold_planes_stream", "route": "cuda",
+        "source": "raxtax_tpu_torch/csrc/fold_stream.cu",
+        "replaces": "raxtax_tpu/ops/intersect_stream.py:38",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": {"B": BATCH, "k_pad": k_pad, "W": W, "P": P,
+                  "pairs": n_pairs, "group_size": group,
+                  "ctas": [-(-W // st.TILE), -(-BATCH // group)]},
+        "bits_equal_fold_planes": True,
+        "unique_rows": uniq_rows,
+        "build_pairs_ms": sort_ms,  # the sort beside the kernel
+        "ms_by_group_size": by_group,
+        "whole_matrix_bound_ms": (int(km3.shape[0]) * W * 4 + out_bytes)
+        / PEAK_BYTES_PER_S * 1e3,
+        "stream_bound_ms": (n_pairs * W * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3,
+    })
+    return out
+
+
 def phase_kernels(db, queries, state) -> list[dict]:
     """Each kernel at the large database's shapes, B = 256, against its
     plain version on the same inputs (tolerance 0: integers and f32 / f64
@@ -583,6 +832,15 @@ def phase_kernels(db, queries, state) -> list[dict]:
         "stream_bound_ms": (total_rows * W * 4 + out_bytes)
         / PEAK_BYTES_PER_S * 1e3,
     })
+
+    # K9, K10 (appended behind K8 so the first eight keep their order) -------
+    variants = fold_variants(
+        state, queries, planes, (kmer_idx, ks, k_pad, flat_k, off_k)
+    )
+    k1_again = cuda_ms(lambda: intersect_fold.fold_planes(
+        d_idx, d_ks, km3, max_count=k_pad))
+    for v in variants:
+        v["fold_planes_ms_same_batch"] = k1_again
 
     # K3 ------------------------------------------------------------------
     hist = pl.planes_histogram(planes, s_max, n_tips)
@@ -749,7 +1007,7 @@ def phase_kernels(db, queries, state) -> list[dict]:
     # the bit-major scan is launched only on a packed database (the
     # 65,536-reference run holds it there); this is its time at this size
     out.append(scan_compare("dd_cumsum_bitmajor", probs32, packed=True))
-    return out
+    return out + variants
 
 
 def timed_pass(db, queries, a, clf, phase: str):
@@ -780,7 +1038,7 @@ def phase_path_large(per_ref_s: float):
     # included) + oracle: keep what is left of the budget for all of them
     n_refs = 200_000
     for cand in (1_000_000, 500_000):
-        est = 3.0 * per_ref_s * cand + 210.0 + 2.5e-4 * cand
+        est = 3.0 * per_ref_s * cand + 330.0 + 2.5e-4 * cand
         if est < remaining():
             n_refs = cand
             break
@@ -812,9 +1070,60 @@ def phase_path_large(per_ref_s: float):
     }
     del clf
     torch.cuda.empty_cache()
-    note("exact path driven; uploading the block-padded matrix")
+    note("exact path driven; the same path with the stream fold")
 
-    # -- the double-f32 path, sparse fold: all queries -----------------------
+    # -- this slice's path: the exact-f64 path on the stream fold, all queries
+    a = args_for(fold="stream")
+    clf = make_classifier(db, a, n_queries_hint=len(queries))
+    torch.cuda.reset_peak_memory_stats()
+    outs, tsvs, dt, counts, phase_ms = timed_pass(db, queries, a, clf, "path_1m_stream")
+    n_batches = -(-len(queries) // clf.batch_size)
+    if counts["fold_planes_stream"] != n_batches or counts["fold_planes"]:
+        raise AssertionError(f"path_1m_stream: fold launches {counts}")
+    for k in AFTER_FOLD:
+        if counts[k] < n_batches:
+            raise AssertionError(f"path_1m_stream launched {k} {counts[k]} times")
+    checked = check_oracle(db, queries, outs, tsvs, 5)
+    p1m_stream = {
+        "phase": "path_1m_stream", "refs": n_refs, "queries": len(queries),
+        "batch": clf.batch_size, "pass_s": round(dt, 3),
+        "queries_per_s": round(len(queries) / dt, 2),
+        "phase_ms_per_batch": phase_ms, "oracle_checked": checked,
+        "peak_gpu_bytes": int(torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    del clf
+    torch.cuda.empty_cache()
+
+    # -- the gathered fold: two batches, one chunk launch per gather budget --
+    from raxtax_tpu_torch.ops.intersect_fold import gather_chunk
+
+    a = args_for(fold="gathered")
+    clf = make_classifier(db, a, n_queries_hint=len(queries))
+    short = queries[: 2 * BATCH]
+    torch.cuda.reset_peak_memory_stats()
+    outs, tsvs, dt, counts, phase_ms = timed_pass(db, short, a, clf, "path_1m_gathered")
+    km3 = clf.state.kmer_major3
+    chunks = -(-BATCH // gather_chunk(
+        BATCH, clf._k_pad_hw, int(km3.shape[1] * km3.shape[2]) * 4))
+    if counts["fold_planes_gathered"] != 2 * chunks or counts["fold_planes"]:
+        raise AssertionError(
+            f"path_1m_gathered: {chunks} chunks per batch, launches {counts}")
+    checked = check_oracle(db, short, outs, tsvs, 5)
+    p1m_gathered = {
+        "phase": "path_1m_gathered", "refs": n_refs, "queries": len(short),
+        "batch": clf.batch_size, "pass_s": round(dt, 3),
+        "queries_per_s": round(len(short) / dt, 2),
+        "phase_ms_per_batch": phase_ms, "oracle_checked": checked,
+        "chunk_launches_per_batch": chunks,
+        "peak_gpu_bytes": int(torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    del clf, km3
+    torch.cuda.empty_cache()
+    note("stream and gathered folds driven; uploading the block-padded matrix")
+
+    # -- the double-f32 path, sparse fold: half the queries ------------------
     a = args_for(dd=True)
     t0 = time.time()
     clf = make_classifier(db, a, n_queries_hint=len(queries))
@@ -824,8 +1133,8 @@ def phase_path_large(per_ref_s: float):
     torch.cuda.empty_cache()
     note("kernels compared; driving the double-f32 path")
     torch.cuda.reset_peak_memory_stats()
-    outs, tsvs, dt, dd_counts, phase_ms = timed_pass(db, queries, a, clf, "path_1m_dd")
-    n_batches = -(-len(queries) // clf.batch_size)
+    outs, tsvs, dt, dd_counts, phase_ms = timed_pass(db, half, a, clf, "path_1m_dd")
+    n_batches = -(-len(half) // clf.batch_size)
     flipped = not clf._sparse
     for k in DD_PATH:
         if dd_counts[k] < n_batches:
@@ -834,12 +1143,12 @@ def phase_path_large(per_ref_s: float):
         dd_counts["fold_planes_sparse"] <= 0 and not flipped
     ):
         raise AssertionError(f"path_1m_dd: fold launches {dd_counts}")
-    checked = check_oracle(db, queries, outs, tsvs, 5)
+    checked = check_oracle(db, half, outs, tsvs, 5)
     k2 = next(k for k in kernels if k["name"] == "fold_planes_sparse")
     p1m_dd = {
-        "phase": "path_1m_dd", "refs": n_refs, "queries": len(queries),
+        "phase": "path_1m_dd", "refs": n_refs, "queries": len(half),
         "batch": clf.batch_size, "upload_s": round(upload_dd_s, 2),
-        "pass_s": round(dt, 3), "queries_per_s": round(len(queries) / dt, 2),
+        "pass_s": round(dt, 3), "queries_per_s": round(len(half) / dt, 2),
         "phase_ms_per_batch": phase_ms, "oracle_checked": checked,
         "peak_gpu_bytes": int(torch.cuda.max_memory_allocated()),
         "launches": dd_counts, "host_replays": clf.host_replays,
@@ -852,7 +1161,33 @@ def phase_path_large(per_ref_s: float):
         "pairs_per_query_max_first_batch": k2["pairs_per_query_max"],
         "pair_budget": k2["pair_budget"],
     }
-    return kernels, p1m, p1m_dd
+    del clf
+    torch.cuda.empty_cache()
+    note("double-f32 path driven; uploading the ref-major matrix")
+
+    # -- the dense-count backend: two batches. The tip count is no multiple
+    # of 128 at 1,000,000 references, so its scan is the pairwise tree. A
+    # failure here (memory, time) raises like any other
+    a = args_for(backend="xla")
+    t0 = time.time()
+    clf = make_classifier(db, a, n_queries_hint=len(queries))
+    torch.cuda.synchronize()
+    upload_xla_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    outs, tsvs, dt, counts, phase_ms = timed_pass(db, short, a, clf, "path_1m_xla")
+    check_dense_launches("path_1m_xla", counts, 2, scan=db.num_tips % 128 == 0)
+    checked = check_oracle(db, short, outs, tsvs, 5)
+    p1m_xla = {
+        "phase": "path_1m_xla", "refs": n_refs, "queries": len(short),
+        "batch": clf.batch_size, "upload_s": round(upload_xla_s, 2),
+        "pass_s": round(dt, 3), "queries_per_s": round(len(short) / dt, 2),
+        "phase_ms_per_batch": phase_ms, "oracle_checked": checked,
+        "scan": "dd_cumsum" if db.num_tips % 128 == 0 else "pairwise tree",
+        "peak_gpu_bytes": int(torch.cuda.max_memory_allocated()),
+        "launches": counts, "host_replays": clf.host_replays,
+    }
+    note(f"dense-count backend driven in {time.time() - t0:.1f}s")
+    return kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla
 
 
 def main() -> int:
@@ -868,16 +1203,26 @@ def main() -> int:
     say(p65)
     p65_dd, k7_on_path = phase_path_65k_dd(db, queries)
     say(p65_dd)
+    say(phase_path_65k_fold(db, queries, "stream"))
+    say(phase_path_65k_fold(db, queries, "gathered"))
+    say(phase_path_65k_xla(db, queries))
     del db
-    kernels, p1m, p1m_dd = phase_path_large(per_ref_s)
+    kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla = phase_path_large(
+        per_ref_s)
     say(p1m)
+    say(p1m_stream)
+    say(p1m_gathered)
     say(p1m_dd)
+    say(p1m_xla)
     # launches: from the main path that runs the kernel — the exact path at
-    # full size, the double-f32 path at full size, and for what only a
+    # full size (with the dense, the stream and the gathered fold), the
+    # double-f32 path at full size, and for what only a
     # 65,536-reference run launches (the bit-major scan; the sparse fold when
     # the full-size run flipped to dense on its pair budget) that run
     sources = (
         ("path_1m", p1m["launches"], EXACT_PATH),
+        ("path_1m_stream", p1m_stream["launches"], ("fold_planes_stream",)),
+        ("path_1m_gathered", p1m_gathered["launches"], ("fold_planes_gathered",)),
         ("path_1m_dd", p1m_dd["launches"],
          ("planes_high", "dd_cumsum", "fold_planes_sparse")),
         ("path_65k_dd", p65_dd["launches"], ("fold_planes_sparse",)),

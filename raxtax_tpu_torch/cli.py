@@ -9,14 +9,21 @@ BSD-style exit codes. Runs on the GPU unless ``--device cpu`` is given.
 The engine's mode is chosen by the JAX package's own environment names, read
 here and nowhere else in the package (:func:`engine_mode_from_env`):
 ``RAXTAX_EXACT`` (``1`` exact f64, ``0`` double-f32, ``auto`` double-f32 until
-host replays become dense), ``RAXTAX_SPARSE_FOLD`` (``1`` block-sparse fold)
-and ``RAXTAX_BM_SCAN`` (``1`` bit-major scan). Unset, they leave the port's
-defaults: exact significance, dense fold.
+host replays become dense), ``RAXTAX_SPARSE_FOLD`` (``1`` block-sparse fold),
+``RAXTAX_FUSED_GATHER`` (``0``, with the sparse fold off: gather the rows,
+then fold them), ``RAXTAX_BM_SCAN`` (``1`` bit-major scan) and
+``RAXTAX_SPLIT_SIG`` (``1``: the single-tip split of the ``xla`` backend).
+Unset, they leave the port's defaults: exact significance, dense fold.
+
+``--backend`` picks how counts are made: ``auto`` and ``pallas`` fold counter
+planes (the fold named by the environment), ``stream`` folds them from
+row-sorted pairs, ``xla`` builds a dense count matrix from the ref-major
+matrix (double-f32 significance only), ``oracle`` runs on the host.
 
 Flags of the JAX package whose code paths are not ported yet (meshes,
-multi-process runs, the xla/stream backends, the on-device f32 descent,
-profiler traces) are still parsed, and exit with a "not yet ported" error
-rather than silently running a single-device job.
+multi-process runs, the on-device f32 descent, profiler traces) are still
+parsed, and exit with a "not yet ported" error rather than silently running
+a single-device job.
 """
 
 from __future__ import annotations
@@ -104,9 +111,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--backend", choices=["auto", "oracle", "xla", "pallas", "stream"],
         default="auto",
-        help="Compute backend: auto (the device engine with its CUDA "
-        "kernels), oracle (host numpy, exact f64; slow). xla, pallas and "
-        "stream name backends of the JAX package that are not ported yet",
+        help="Compute backend: auto or pallas (the device engine folding "
+        "counter planes with its CUDA kernels), stream (the same with the "
+        "stream fold), xla (dense counts from the ref-major matrix by a "
+        "matrix product), oracle (host numpy, exact f64; slow)",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -147,13 +155,19 @@ def engine_mode_from_env(environ=None) -> dict:
     exact = env.get("RAXTAX_EXACT", "")
     if exact not in ("", "0", "1", "auto"):
         raise ValueError(f"RAXTAX_EXACT must be 0, 1 or auto, not {exact!r}")
+    if env.get("RAXTAX_SPARSE_FOLD", "") not in ("", "0"):
+        fold = "sparse"
+    elif env.get("RAXTAX_FUSED_GATHER", "") == "0":
+        # the JAX package's row gather followed by the fold of gathered rows
+        # (there also what an unset name means; here unset keeps K1)
+        fold = "gathered"
+    else:
+        fold = "dense"
     return {
         "significance": {"": "exact", "1": "exact", "0": "dd", "auto": "auto"}[exact],
-        "fold": (
-            "sparse" if env.get("RAXTAX_SPARSE_FOLD", "") not in ("", "0")
-            else "dense"
-        ),
+        "fold": fold,
         "bm_scan": env.get("RAXTAX_BM_SCAN", "") not in ("", "0"),
+        "split_sig": env.get("RAXTAX_SPLIT_SIG", "") not in ("", "0"),
     }
 
 
@@ -165,8 +179,6 @@ def not_ported(args) -> str | None:
         (bool(args.num_processes), "--num-processes"),
         (args.process_id >= 0, "--process-id"),
         (args.global_mesh, "--global-mesh"),
-        (args.backend in ("xla", "pallas", "stream"),
-         f"--backend {args.backend}"),
         (args.descent == "device", "--descent device"),
         (args.trace is not None, "--trace"),
     ]
@@ -194,7 +206,7 @@ def main(argv: list[str] | None = None) -> int:
             file=sys.stderr,
         )
         return errors.UNAVAILABLE
-    if args.backend == "auto" and not args.only_db:
+    if args.backend != "oracle" and not args.only_db:
         # raises without a GPU unless --device cpu was asked for, before any
         # output file exists
         from .utils.device import resolve_device
@@ -233,11 +245,12 @@ def main(argv: list[str] | None = None) -> int:
         # Parse reference database (binary fast path via the checkpointed
         # path, src/main.rs:61)
         db_path = Path(checkpoint.db_fingerprint.path)
-        # No ported path reads the [N, 2048] ref-major matrix, so a FASTA
-        # parse never builds it (a binary DB loads whatever it contains).
-        # `--only-db` keeps it: the future consumer's backend is unknown.
+        # Only the xla backend reads the [N, 2048] ref-major matrix, so a
+        # FASTA parse builds it for that backend alone (a binary DB loads
+        # whatever it contains). `--only-db` keeps it: the future consumer's
+        # backend is unknown.
         backend = args.backend
-        want_ref_major = args.only_db
+        want_ref_major = args.only_db or backend == "xla"
         # flat postings at scale (the bit-major planes are then tip order),
         # packed for tiny databases; the bit-major scan reads packed only
         want_layout = (

@@ -6,8 +6,9 @@
   bridge, readable by both).
 - :func:`device_state` uploads what the engine keeps resident on the device:
   the k-mer-major postings matrix (block-padded, with its host block CSR,
-  when the sparse fold is asked for), the eval-node ranges, the unit/wide
-  split and the descent CSR.
+  when the sparse fold is asked for) or, for the dense-count backend, the
+  ref-major matrix; the eval-node ranges, the unit/wide or single-tip split
+  and the descent CSR.
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ def database_fields(db) -> dict:
         "node_type": np.asarray(tax.node_type),
         "num_tips": int(tax.num_tips),
         "kmer_major": np.asarray(db.kmer_major),
+        "ref_major": (
+            None if db.ref_major is None else np.asarray(db.ref_major)
+        ),
         "kmer_layout": str(db.kmer_layout),
         "seq_flat": np.asarray(db.seq_flat),
         "seq_offsets": np.asarray(db.seq_offsets),
@@ -47,7 +51,8 @@ def database_fields(db) -> dict:
 
 def database_from_numpy(fields: dict) -> Database:
     """Build this package's ``Database`` from :func:`database_fields`
-    output. The ref-major matrix is not carried: no ported path reads it."""
+    output. The ref-major matrix (read by the dense-count backend only) is
+    carried when the source database holds one."""
     taxonomy = Taxonomy(
         lineages=list(fields["lineages"]),
         labels=list(fields["labels"]),
@@ -66,7 +71,10 @@ def database_from_numpy(fields: dict) -> Database:
     )
     return Database(
         taxonomy=taxonomy,
-        ref_major=None,
+        ref_major=(
+            None if fields.get("ref_major") is None
+            else np.asarray(fields["ref_major"], np.uint32)
+        ),
         kmer_major=np.asarray(fields["kmer_major"], np.uint32),
         seq_flat=seq_flat,
         seq_offsets=seq_offsets,
@@ -82,7 +90,8 @@ class DeviceState:
     device: torch.device
     num_tips: int
     layout: str  #: "packed" or "flat" (tip -> (word, bit) mapping)
-    kmer_major3: torch.Tensor  #: [65537, S, 128] int32 postings rows
+    #: [65537, S, 128] int32 postings rows (None: dense-count backend)
+    kmer_major3: torch.Tensor | None
     node_starts: torch.Tensor  #: [J] eval-node tip-range starts
     node_ends: torch.Tensor  #: [J]
     #: (wide_starts, wide_ends, wide_pos, tip_has_unit) or None
@@ -101,16 +110,24 @@ class DeviceState:
     #: host block CSR of the sparse fold (None: dense fold only)
     blk_ptr: np.ndarray | None = None
     blk_ids: np.ndarray | None = None
+    #: [N, 2048] int32 ref-major presence rows (dense-count backend only)
+    ref_bits: torch.Tensor | None = None
+    #: (inner_starts, inner_ends, inner_pos, evalpos_of_tip), the single-tip
+    #: split of the dense-count significance stage, or None
+    split_sig: tuple | None = None
 
 
 def device_state(
-    db: Database, device, split2: bool = True, sparse: bool = False
+    db: Database, device, split2: bool = True, sparse: bool = False,
+    dense_counts: bool = False, split_sig: bool = False,
 ) -> DeviceState:
     """Upload the resident state. The descent CSR is in GLOBAL node space:
     the reference's ``max_by`` ranges over all children, childless Sequence
     nodes included (src/lineage.rs:154-170). With ``sparse`` the matrix is
     padded to whole 8 x 128-word blocks and its block CSR is kept on the
-    host; the dense fold runs on the same copy."""
+    host; the other folds run on the same copy. With ``dense_counts`` the
+    ref-major matrix is uploaded in place of the postings matrix (and
+    ``split_sig`` adds the single-tip split of its significance stage)."""
     dev = torch.device(device)
     tax = db.taxonomy
 
@@ -132,8 +149,14 @@ def device_state(
         )
     pad_node = tax.n_nodes - 1  # the last created node is a Sequence leaf
     assert tax.node_type[pad_node] != NODE_INNER
-    blk_ptr = blk_ids = None
-    if sparse:
+    blk_ptr = blk_ids = kmer_major3 = ref_bits = split_one = None
+    if dense_counts:
+        ref_bits = up(np.ascontiguousarray(db.ref_major).view(np.int32))
+        if split_sig:
+            split_one = tuple(
+                up(a, torch.int64) for a in tax.split_sig_arrays()
+            )
+    elif sparse:
         kmer_major3, blk_ptr, blk_ids = prepare_kmer_major_sparse(db, dev)
     else:
         kmer_major3 = prepare_kmer_major(db, dev)
@@ -156,4 +179,6 @@ def device_state(
         sideband=sideband,
         blk_ptr=blk_ptr,
         blk_ids=blk_ids,
+        ref_bits=ref_bits,
+        split_sig=split_one,
     )

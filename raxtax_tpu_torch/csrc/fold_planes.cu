@@ -25,18 +25,6 @@ namespace {
 constexpr int FOLD_THREADS = 256;
 constexpr int ID_CHUNK = 1024;  // k-mer ids staged per shared-memory refill
 
-__device__ __forceinline__ void csa(uint4& s, uint4& carry, const uint4 a,
-                                    const uint4 b, const uint4 c) {
-    // full adder on bit vectors: s = a ^ b ^ c, carry = majority(a, b, c)
-    uint4 ab;
-    ab.x = a.x ^ b.x; ab.y = a.y ^ b.y; ab.z = a.z ^ b.z; ab.w = a.w ^ b.w;
-    carry.x = (a.x & b.x) | (ab.x & c.x);
-    carry.y = (a.y & b.y) | (ab.y & c.y);
-    carry.z = (a.z & b.z) | (ab.z & c.z);
-    carry.w = (a.w & b.w) | (ab.w & c.w);
-    s.x = ab.x ^ c.x; s.y = ab.y ^ c.y; s.z = ab.z ^ c.z; s.w = ab.w ^ c.w;
-}
-
 template <int NH>
 __global__ void __launch_bounds__(FOLD_THREADS)
 fold_planes_kernel(const int* __restrict__ kmer_idx,      // [B, k_pad]
@@ -72,41 +60,12 @@ fold_planes_kernel(const int* __restrict__ kmer_idx,      // [B, k_pad]
                            ? __ldg(kmer_major + (long long)ids[j0 + i] * W4 + w)
                            : zero;
             }
-            uint4 t0, t1, f0, f1, e0, e1, sixteens;
-            csa(ones, t0, ones, x[0], x[1]);
-            csa(ones, t1, ones, x[2], x[3]);
-            csa(twos, f0, twos, t0, t1);
-            csa(ones, t0, ones, x[4], x[5]);
-            csa(ones, t1, ones, x[6], x[7]);
-            csa(twos, f1, twos, t0, t1);
-            csa(fours, e0, fours, f0, f1);
-            csa(ones, t0, ones, x[8], x[9]);
-            csa(ones, t1, ones, x[10], x[11]);
-            csa(twos, f0, twos, t0, t1);
-            csa(ones, t0, ones, x[12], x[13]);
-            csa(ones, t1, ones, x[14], x[15]);
-            csa(twos, f1, twos, t0, t1);
-            csa(fours, e1, fours, f0, f1);
-            csa(eights, sixteens, eights, e0, e1);
-            uint4 carry = sixteens;
-#pragma unroll
-            for (int p = 0; p < NH; ++p) {
-                const uint4 plane = high[p];
-                high[p].x = plane.x ^ carry.x; carry.x = plane.x & carry.x;
-                high[p].y = plane.y ^ carry.y; carry.y = plane.y & carry.y;
-                high[p].z = plane.z ^ carry.z; carry.z = plane.z & carry.z;
-                high[p].w = plane.w ^ carry.w; carry.w = plane.w & carry.w;
-            }
+            rx_hs_fold16<NH>(ones, twos, fours, eights, high, x);
         }
     }
     if (!live) return;
     uint4* o = out + (long long)b * (4 + NH) * W4 + w;
-    o[0] = ones;
-    o[W4] = twos;
-    o[2 * W4] = fours;
-    o[3 * W4] = eights;
-#pragma unroll
-    for (int p = 0; p < NH; ++p) o[(long long)(4 + p) * W4] = high[p];
+    rx_store_planes<NH>(o, W4, ones, twos, fours, eights, high);
 }
 
 template <int NH>

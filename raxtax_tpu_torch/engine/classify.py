@@ -21,10 +21,13 @@ log = logging.getLogger("raxtax")
 
 
 def make_classifier(db: Database, args, n_queries_hint: int | None = None):
-    """Backend dispatch: 'oracle' (host numpy, exact) or 'auto' (the device
-    engine, on ``args.device``: the GPU unless the CPU is asked for, in the
-    mode ``args.significance`` / ``args.fold`` / ``args.bm_scan`` name; the
-    engine's defaults where they are absent)."""
+    """Backend dispatch: 'oracle' (host numpy, exact) or the device engine
+    on ``args.device`` (the GPU unless the CPU is asked for). 'auto' and
+    'pallas' fold counter planes in the mode ``args.significance`` /
+    ``args.fold`` / ``args.bm_scan`` name (the engine's defaults where they
+    are absent); 'stream' takes the stream fold; 'xla' builds dense counts
+    from the ref-major matrix (``args.split_sig`` picks its single-tip
+    split)."""
     backend = getattr(args, "backend", "auto")
     if backend == "oracle":
         return OracleClassifier(
@@ -32,8 +35,9 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
             skip_exact_matches=args.skip_exact_matches,
             raw_confidence=args.raw_confidence,
         )
-    if backend != "auto":
-        raise ValueError(f"backend {backend!r} is not ported yet")
+    if backend not in ("auto", "pallas", "stream", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    fold = "stream" if backend == "stream" else getattr(args, "fold", "dense")
     from .device import DeviceClassifier  # deferred: uploads the database
 
     return DeviceClassifier.create(
@@ -46,8 +50,10 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
         tsv=getattr(args, "tsv", True),
         n_queries_hint=n_queries_hint,
         significance=getattr(args, "significance", "exact"),
-        fold=getattr(args, "fold", "dense"),
+        fold=fold,
         bm_scan=getattr(args, "bm_scan", False),
+        counts="dense" if backend == "xla" else "planes",
+        split_sig=backend == "xla" and getattr(args, "split_sig", False),
     )
 
 

@@ -3,8 +3,9 @@
 Per query batch, three phases:
 
   A submit   host: distinct 8-mers, exact-match lookup
-             device: postings fold (K1 dense, or K2 block-sparse with a
-             sticky flip to K1) -> counter planes, exact-match tips zeroed,
+             device: postings fold (K1 dense, K2 block-sparse with a sticky
+             flip to K1, K9 over gathered rows, or K10 over row-sorted
+             pairs) -> counter planes, exact-match tips zeroed,
              intersection-size histogram (K3), async pull
   B prepare  host: histogram in, f64 top-hit probability tables + global
              signal (prob/model.py)
@@ -27,6 +28,14 @@ That is within ~4e-9 of the exact value, so confidences inside a half-cent
 risk band, and descents whose device margin proves nothing, replay on the
 host in exact f64 from the wire. ``"auto"`` starts on that path and flips to
 the exact one for the rest of the run when host replays become dense.
+
+``counts="dense"`` is the JAX package's ``xla`` backend: no planes at all. A
+``[B, N]`` f32 count matrix comes from a bit-unpack matrix product against the
+resident ref-major matrix (``ops/intersect_xla.py``), the histogram is a
+per-row bincount, the table lookup a gather, and the significance stage is
+always the double-f32 one (the exact-f64 kernels read planes). Host replays
+read the nibble wire (``compress_counts``) once replays have been dense, else
+gathered u16 count rows.
 
 All O(num_refs) work runs on the device; the host touches histograms,
 (K+1)-sized tables, the compacted significant set and the replayed rows.
@@ -51,18 +60,29 @@ from ..models.oracle import (
     apply_exact_match_policy,
     log_exact_matches,
 )
-from ..ops.compress import compress_planes, decompress_planes_rows
+from ..db.bitmatrix import pack_query_kmers
+from ..ops.compress import (
+    compress_counts,
+    compress_planes,
+    decompress_planes_rows,
+    decompress_rows,
+)
 from ..ops.exactscan import max_descent_exact, significant_nodes_exact
+from ..ops.histogram import intersection_histogram
 from ..ops.intersect_fold import (
     PAD_ROW,
     build_pairs,
     fold_planes,
     fold_planes_sparse,
+    intersection_planes_gathered,
 )
+from ..ops.intersect_stream import intersection_planes_stream
+from ..ops.intersect_xla import intersection_counts_xla, zero_reference_ids
 from ..ops.nodeconf import (
     DESCENT_MARGIN_SAFE,
     cum_from_planes,
     max_descent,
+    significant_nodes,
     significant_nodes_planes,
 )
 from ..ops.planes import (
@@ -97,6 +117,10 @@ SIGNAL_RISK_MARGIN = 1e-4
 #: plane, ~10 planes), the f64 probabilities and their f64 prefix sums, the
 #: tip mask; times the batches in flight in the three-deep loop
 _LIVE_BYTES_PER_TIP = 150
+#: the same for the dense-count backend: the f32 counts, the f32
+#: probabilities and the double-f32 prefix pair (the JAX package's 32 bytes
+#: per tip for two batches in flight, for the three of this loop)
+_LIVE_BYTES_PER_TIP_DENSE = 48
 BATCH_MAX = 256
 BATCH_MIN = 32
 
@@ -118,6 +142,7 @@ class _Submitted:
     ks: list
     s_max: int
     n_real: int
+    #: counter planes, or the ``[B, N]`` f32 counts of the dense backend
     planes: torch.Tensor
     hist_host: torch.Tensor
     ready: object
@@ -141,7 +166,8 @@ class _Prepared:
     #: exact: [B, Np+1] f64 prefix sums; dd: (cum_hi, cum_lo) or None
     cum0: object
     exact_mode: bool
-    #: dd: the wire (lo4, over_idx, over_val, n_over) on the device, or None
+    #: dd: the wire (lo4, over_idx, over_val, n_over) on the device, or None;
+    #: with dense counts the nibble wire (plane, over_idx, over_val, n_over)
     wire: tuple | None = None
     #: dd: the wire whose overflow lists fed the lookup's fix-up (None when
     #: the full-width lookup was used)
@@ -160,7 +186,11 @@ def auto_batch_size(
     inside 60 % of the device memory left after the resident state."""
     if state.device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(state.device)
-        fit = int(0.6 * free) // max(_LIVE_BYTES_PER_TIP * n_padded_tips, 1)
+        per_tip = (
+            _LIVE_BYTES_PER_TIP if state.ref_bits is None
+            else _LIVE_BYTES_PER_TIP_DENSE
+        )
+        fit = int(0.6 * free) // max(per_tip * n_padded_tips, 1)
         batch = max(BATCH_MIN, min(BATCH_MAX, fit))
     else:
         batch = BATCH_MIN
@@ -196,6 +226,12 @@ class DeviceClassifier:
     bm_scan: bool = False
     #: the batch being prepared runs the exact-f64 path (sticky once set)
     _exact_mode: bool = field(default=True, repr=False)
+    #: which kernel folds the postings: "dense" (K1), "sparse" (K2),
+    #: "gathered" (index_select + K9) or "stream" (K10)
+    fold: str = "dense"
+    #: "planes", or "dense": the ``[B, N]`` count matrix of the JAX package's
+    #: xla backend (no fold, double-f32 significance only)
+    counts: str = "planes"
     #: block-sparse fold (K2). Sticky: a workload whose pair count exceeds
     #: the crossover budget switches to the dense fold for good
     _sparse: bool = field(default=False, repr=False)
@@ -252,6 +288,8 @@ class DeviceClassifier:
         significance: str = "exact",
         fold: str = "dense",
         bm_scan: bool = False,
+        counts: str = "planes",
+        split_sig: bool = False,
     ) -> "DeviceClassifier":
         """Upload the database and build the classifier. ``device`` defaults
         to the GPU and raises when there is none; pass ``"cpu"`` to run the
@@ -259,20 +297,46 @@ class DeviceClassifier:
         significance split (default) or one boundary pair per eval node.
         ``significance`` is ``"exact"`` (default), ``"dd"`` or ``"auto"``
         (start on dd, flip to exact under dense host replays); ``fold`` is
-        ``"dense"`` (default) or ``"sparse"``; ``bm_scan`` selects K7 on the
-        dd path."""
+        ``"dense"`` (default), ``"sparse"``, ``"gathered"`` or ``"stream"``;
+        ``bm_scan`` selects K7 on the dd path. ``counts="dense"`` builds the
+        count matrix from the ref-major matrix instead of folding planes
+        (``fold``, ``split2`` and ``bm_scan`` are then unused and the
+        significance stage is the double-f32 one whatever ``significance``
+        says); ``split_sig`` reads its single-tip eval nodes straight from
+        the probabilities."""
         if significance not in ("exact", "dd", "auto"):
             raise ValueError(f"unknown significance mode {significance!r}")
-        if fold not in ("dense", "sparse"):
+        if fold not in ("dense", "sparse", "gathered", "stream"):
             raise ValueError(f"unknown fold {fold!r}")
+        if counts not in ("planes", "dense"):
+            raise ValueError(f"unknown counts representation {counts!r}")
+        dense = counts == "dense"
+        if dense and db.ref_major is None:
+            raise RuntimeError(
+                "the dense-count (xla) backend needs the ref-major matrix, "
+                "but this database was built without it; rebuild the "
+                "database or pick another backend"
+            )
+        if split_sig and not dense:
+            raise ValueError(
+                "split_sig belongs to the dense-count backend; the planes "
+                "backends take the unit/wide split (split2)"
+            )
+        bm_scan = bm_scan and not dense
         if bm_scan and significance != "exact" and db.kmer_layout != "packed":
             raise ValueError(
                 "bm_scan reads the packed postings layout; this database "
                 f"holds the {db.kmer_layout} one"
             )
         dev = resolve_device(device)
-        state = device_state(db, dev, split2=split2, sparse=fold == "sparse")
-        n_padded = int(state.kmer_major3.shape[1] * state.kmer_major3.shape[2]) * 32
+        state = device_state(
+            db, dev, split2=split2 and not dense,
+            sparse=fold == "sparse" and not dense,
+            dense_counts=dense, split_sig=split_sig,
+        )
+        n_padded = db.num_tips if dense else int(
+            state.kmer_major3.shape[1] * state.kmer_major3.shape[2]
+        ) * 32
         if not batch_size:
             batch_size = auto_batch_size(state, n_padded, n_queries_hint)
         self = cls(
@@ -285,9 +349,11 @@ class DeviceClassifier:
             debug_checks=debug_checks,
             significance=significance,
             bm_scan=bool(bm_scan),
+            fold=fold,
+            counts=counts,
         )
-        self._exact_mode = significance == "exact"
-        self._sparse = fold == "sparse"
+        self._exact_mode = significance == "exact" and not dense
+        self._sparse = fold == "sparse" and not dense
         # scale-aware FIXED overflow budget: overflow tips track the size of
         # the closest clade, which grows with the database. Workloads that
         # exceed it switch to the full-width lookup (see _mux_dense)
@@ -338,6 +404,21 @@ class DeviceClassifier:
             self._to_device(pair_kmer), self._to_device(pair_blk),
             self._to_device(totals.astype(np.int32)), st.kmer_major3,
             max_count=k_pad,
+        )
+
+    def _dense_counts(self, seqs, kmer_sets) -> torch.Tensor:
+        """The ``[B, N]`` f32 count matrix of the dense backend: the packed
+        query presence rows against the resident ref-major matrix."""
+        B = self.batch_size
+        q_bits = native.pack_query_rows(seqs) if kmer_sets is None else None
+        if q_bits is None:
+            if kmer_sets is None:
+                kmer_sets = [sequence_to_kmers(s) for s in seqs]
+            q_bits = pack_query_kmers(kmer_sets)
+        rows = np.zeros((B, q_bits.shape[1]), np.int32)
+        rows[: q_bits.shape[0]] = q_bits.view(np.int32)
+        return intersection_counts_xla(
+            self._to_device(rows), self.state.ref_bits
         )
 
     def submit_batch(self, chunk: list[tuple[str, np.ndarray]]):
@@ -395,24 +476,40 @@ class DeviceClassifier:
             else 0
         )
 
-        planes = None
-        if self._sparse:
-            planes = self._sparse_counts(kmer_idx, k_pad)
-        if planes is None:
-            planes = fold_planes(
-                self._to_device(kmer_idx),
-                self._to_device(np.asarray(ks, np.int32)),
-                st.kmer_major3,
-                max_count=k_pad,
-            )
+        ids = None
         if e_pad:
             ids = np.full((B, e_pad), -1, dtype=np.int64)
             for i, e in enumerate(exact):
                 ids[i, : len(e)] = e
-            planes = zero_tips_in_planes(
-                planes, self._to_device(ids), layout=st.layout
-            )
-        hist_dev = planes_histogram(planes, s_max, self.db.num_tips)
+        if self.counts == "dense":
+            planes = self._dense_counts(seqs, kmer_sets)
+            if ids is not None:
+                planes = zero_reference_ids(planes, self._to_device(ids))
+            hist_dev = intersection_histogram(planes, s_max)
+        else:
+            planes = None
+            if self._sparse:
+                planes = self._sparse_counts(kmer_idx, k_pad)
+            elif self.fold == "stream":
+                planes = intersection_planes_stream(
+                    self._to_device(kmer_idx), st.kmer_major3, max_count=k_pad
+                )
+            elif self.fold == "gathered":
+                planes = intersection_planes_gathered(
+                    self._to_device(kmer_idx), st.kmer_major3, max_count=k_pad
+                )
+            if planes is None:
+                planes = fold_planes(
+                    self._to_device(kmer_idx),
+                    self._to_device(np.asarray(ks, np.int32)),
+                    st.kmer_major3,
+                    max_count=k_pad,
+                )
+            if ids is not None:
+                planes = zero_tips_in_planes(
+                    planes, self._to_device(ids), layout=st.layout
+                )
+            hist_dev = planes_histogram(planes, s_max, self.db.num_tips)
         if st.device.type == "cuda":
             # the phase-B sync point: a pinned buffer and a non-blocking
             # copy, so this call returns while the device still works
@@ -454,7 +551,13 @@ class DeviceClassifier:
         B = self.batch_size
         exact_mode = self._exact_mode
         wire = None
-        if not exact_mode and not self._mux_dense:
+        dense = self.counts == "dense"
+        if dense:
+            # the nibble wire, once host replays have been dense; sparse
+            # replays gather u16 count rows per query instead
+            if self._fb_dense:
+                wire = compress_counts(planes)
+        elif not exact_mode and not self._mux_dense:
             # the overflow lists feed the low-bit lookup's fix-up on the
             # device; the lo4 planes are the host wire, gathered per query
             # when a replay asks for them. Skipped in dense-count mode (the
@@ -504,6 +607,12 @@ class DeviceClassifier:
                 planes, self._to_device(table64), st.node_starts, st.node_ends,
                 split2=st.split2, layout=st.layout, num_tips=self.db.num_tips,
             )
+        elif dense:
+            table = self._to_device(table64.astype(np.float32))
+            sig, cum0 = significant_nodes(
+                planes, table, st.node_starts, st.node_ends,
+                split=st.split_sig,
+            )
         else:
             table = self._to_device(table64.astype(np.float32))
             sig, cum0 = self._significant_dd(planes, table, wire)
@@ -513,17 +622,21 @@ class DeviceClassifier:
             n_real=n_real, planes=planes, tables64=tables64,
             global_signals=global_signals, signal_risky=signal_risky,
             sig=sig, cum0=cum0, exact_mode=exact_mode, wire=wire,
-            sig_wire=wire, table=table,
+            sig_wire=None if dense else wire, table=table,
         )
 
     def _exact_row(self, b: int, planes) -> np.ndarray:
         """One query's exact count row in tip order, decoded on the device
-        from its planes."""
+        from its planes (or cut from the dense count matrix)."""
         return self._plane_rows(planes, [b])[0].astype(np.int64)
 
     def _plane_rows(self, planes, queries: list[int]) -> np.ndarray:
-        """``[len(queries), num_tips]`` exact counts decoded on the device
-        from the planes of the given queries."""
+        """``[len(queries), num_tips]`` exact counts of the given queries:
+        decoded on the device from their planes, or, with dense counts, the
+        rows of the count matrix narrowed to integers."""
+        if self.counts == "dense":
+            idx = torch.as_tensor(queries, dtype=torch.long, device=planes.device)
+            return planes.index_select(0, idx).to(torch.int32).cpu().numpy()
         rows = decode_plane_rows(planes, queries, self.state.layout)
         return rows[:, : self.db.num_tips].cpu().numpy()
 
@@ -532,7 +645,7 @@ class DeviceClassifier:
         """Word count of the flat layout (0 when packed), as the native
         decoders take it."""
         st = self.state
-        if st.layout != "flat":
+        if st.layout != "flat" or st.kmer_major3 is None:
             return 0
         return int(st.kmer_major3.shape[1] * st.kmer_major3.shape[2])
 
@@ -562,6 +675,7 @@ class DeviceClassifier:
         full_needed: list[int] = todo
         if st.wire is not None and todo:
             full_needed = []
+            nibble = self.counts == "dense"
             lo4, over_idx, over_val, n_over = self._gather_wire_rows(st.wire, todo)
             budget = over_idx.shape[1]
             for i, b in enumerate(todo):
@@ -569,15 +683,27 @@ class DeviceClassifier:
                 if n > budget:  # the overflow list did not fit
                     full_needed.append(b)
                     continue
-                cum = native.tip_cumsum_planes4(
-                    lo4[i], over_idx[i], over_val[i], n, st.tables64[b],
-                    num_tips, flat_w=self._flat_w,
-                )
-                if cum is None:  # no native library: numpy decompress path
+                if nibble:
+                    cum = native.tip_cumsum_nibble(
+                        lo4[i], over_idx[i], over_val[i], n, st.tables64[b],
+                        num_tips,
+                    )
+                else:
+                    cum = native.tip_cumsum_planes4(
+                        lo4[i], over_idx[i], over_val[i], n, st.tables64[b],
+                        num_tips, flat_w=self._flat_w,
+                    )
+                if cum is None and nibble:  # no native library
+                    row, over = decompress_rows(
+                        lo4, over_idx, over_val, n_over, [i], num_tips,
+                        budget=budget,
+                    )
+                elif cum is None:
                     row, over = decompress_planes_rows(
                         lo4, over_idx, over_val, n_over, [i], num_tips,
                         budget=budget, layout=self.state.layout,
                     )
+                if cum is None:  # the numpy decompress path
                     assert not over
                     cum = np.concatenate(
                         ([0.0], np.cumsum(st.tables64[b][row[0]]))
@@ -677,7 +803,7 @@ class DeviceClassifier:
             return {s: int(f) for s, f in zip(sites, finals)}
 
         fallback_map: dict = {}
-        if st.wire is not None:
+        if st.wire is not None and self.counts == "planes":
             resolved = self._descend_host_batch(sites, st, cum_cache)
             if resolved is not None:
                 fallback_map.update(resolved)
@@ -736,7 +862,7 @@ class DeviceClassifier:
         confidences (see CONF_RISK_MARGIN_SINGLE)."""
         if st.exact_mode:
             return st.sig.pull()
-        if st.wire is not None and st.n_real:
+        if st.wire is not None and st.n_real and self.counts == "planes":
             n_over = st.wire[3].cpu().numpy()[: st.n_real]
             budget = st.wire[1].shape[1]
             if (n_over > budget).any():
@@ -885,6 +1011,7 @@ class DeviceClassifier:
                 self._fb_dense
                 and not self._exact_mode
                 and self.significance == "auto"
+                and self.counts == "planes"
             ):
                 self._exact_mode = True
                 log.info(

@@ -33,7 +33,7 @@ BUILD_DIR = Path(
 )
 KERNEL_SOURCES = (
     "fold_planes", "planes_hist", "planes_probs", "exact_cumsum",
-    "fold_sparse", "planes_high", "dd_cumsum",
+    "fold_sparse", "planes_high", "dd_cumsum", "fold_rows", "fold_stream",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -28,6 +28,18 @@ planes in registers. The TPU limits around that kernel (the sub-batch split
 ``fold_max`` and the scalar-prefetch size check) belong to its compiler and
 are not carried over.
 
+K9, the gathered-rows fold (:func:`fold_planes_gathered`), CUDA kernel
+``csrc/fold_rows.cu`` (``rx_fold_rows``), replaces the TPU kernel
+``_hs_kernel`` (``_hs_planes`` of the JAX package): the same Harley-Seal
+fold over rows that ``index_select`` gathered beforehand into one contiguous
+``[B * K, S, 128]`` tensor (the gather is outside the TPU kernel too, so a
+torch op takes its place). Bound: bytes, every gathered word read once plus
+the planes written. One thread keeps the planes of a ``uint4`` in registers
+and walks the query's contiguous rows with the adder tree it shares with K1;
+no ids, no step skip (padding slots hold the zero row). The gathered copy
+would be ``B * K`` rows at once, so :func:`intersection_planes_gathered`
+chunks the batch under a byte budget as the JAX package does.
+
 Planes are carried as ``int32`` bit patterns (PyTorch has no shifts on
 ``uint32`` for CPU tensors); view them as ``uint32`` only in numpy.
 """
@@ -130,32 +142,15 @@ def _csa(a, b, c):
     return ab ^ c, (a & b) | (ab & c)
 
 
-def fold_planes_plain(
-    kmer_idx: torch.Tensor,  # [B, K_pad] int32, PAD_ROW-padded
-    kcounts: torch.Tensor,  # [B] int32 real distinct-k-mer counts
-    kmer_major3: torch.Tensor,  # [65537, S, 128] int32
-    n_high: int,
-) -> torch.Tensor:  # [B, 4 + n_high, S, 128] int32
-    """Plain PyTorch version of the fold: the same carry-save arithmetic on
-    whole ``[B, W]`` bit vectors, 16 gathered rows per step. Slots at or
-    past a query's real k-mer count contribute zero rows."""
-    B, k_pad = kmer_idx.shape
-    _, S, lanes = kmer_major3.shape
-    W = S * lanes
-    km = kmer_major3.reshape(kmer_major3.shape[0], W)
-    dev = kmer_idx.device
-    zero = torch.zeros((B, W), dtype=torch.int32, device=dev)
+def _hs_fold_plain(row_of, B: int, W: int, steps: int, n_high: int, device):
+    """The carry-save arithmetic of the dense folds on whole ``[B, W]`` bit
+    vectors: ``row_of(k)`` is the ``[B, W]`` row of slot ``k``, folded 16
+    slots per step. Returns ``[B, 4 + n_high, W]``."""
+    zero = torch.zeros((B, W), dtype=torch.int32, device=device)
     ones, twos, fours, eights = zero, zero, zero, zero
     high = [zero] * n_high
-    idx = kmer_idx.long()
-    slot = torch.arange(k_pad, device=dev)[None, :]
-    idx = torch.where(slot < kcounts[:, None], idx, PAD_ROW)
-    steps = int(-(-int(kcounts.max().item() if B else 0) // HS_BLOCK))
     for step in range(steps):
-        x = []
-        for i in range(HS_BLOCK):
-            k = step * HS_BLOCK + i
-            x.append(km[idx[:, k]] if k < k_pad else zero)
+        x = [row_of(step * HS_BLOCK + i) for i in range(HS_BLOCK)]
         ones, t0 = _csa(ones, x[0], x[1])
         ones, t1 = _csa(ones, x[2], x[3])
         twos, f0 = _csa(twos, t0, t1)
@@ -175,7 +170,31 @@ def fold_planes_plain(
             plane = high[p]
             high[p] = plane ^ carry
             carry = plane & carry
-    planes = torch.stack([ones, twos, fours, eights] + high, dim=1)
+    return torch.stack([ones, twos, fours, eights] + high, dim=1)
+
+
+def fold_planes_plain(
+    kmer_idx: torch.Tensor,  # [B, K_pad] int32, PAD_ROW-padded
+    kcounts: torch.Tensor,  # [B] int32 real distinct-k-mer counts
+    kmer_major3: torch.Tensor,  # [65537, S, 128] int32
+    n_high: int,
+) -> torch.Tensor:  # [B, 4 + n_high, S, 128] int32
+    """Plain PyTorch version of the fold: the same carry-save arithmetic on
+    whole ``[B, W]`` bit vectors, 16 gathered rows per step. Slots at or
+    past a query's real k-mer count contribute zero rows."""
+    B, k_pad = kmer_idx.shape
+    _, S, lanes = kmer_major3.shape
+    W = S * lanes
+    km = kmer_major3.reshape(kmer_major3.shape[0], W)
+    dev = kmer_idx.device
+    zero = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    slot = torch.arange(k_pad, device=dev)[None, :]
+    idx = torch.where(slot < kcounts[:, None], kmer_idx.long(), PAD_ROW)
+    steps = int(-(-int(kcounts.max().item() if B else 0) // HS_BLOCK))
+    planes = _hs_fold_plain(
+        lambda k: km[idx[:, k]] if k < k_pad else zero,
+        B, W, steps, n_high, dev,
+    )
     return planes.reshape(B, TIERS + n_high, S, lanes)
 
 
@@ -232,6 +251,105 @@ def fold_planes(
 
 #: kernel launches made by :func:`fold_planes` (plain runs do not count)
 fold_planes.launches = 0
+
+
+def fold_planes_gathered_plain(
+    rows: torch.Tensor,  # [B * K_pad, S, 128] int32 gathered rows
+    batch: int,
+    n_high: int,
+) -> torch.Tensor:  # [B, 4 + n_high, S, 128] int32
+    """Plain PyTorch version of K9: the carry-save tree over the contiguous
+    rows of each query, 16 per step, every slot read."""
+    total, S, lanes = rows.shape
+    k_pad = total // batch if batch else 0
+    r = rows.reshape(batch, k_pad, S * lanes)
+    planes = _hs_fold_plain(
+        lambda k: r[:, k], batch, S * lanes, k_pad // HS_BLOCK, n_high,
+        rows.device,
+    )
+    return planes.reshape(batch, TIERS + n_high, S, lanes)
+
+
+_ROWS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def fold_planes_gathered(
+    rows: torch.Tensor,  # [B * K_pad, S, 128] int32 gathered rows
+    batch: int,
+    n_high: int,
+) -> torch.Tensor:  # [B, 4 + n_high, S, 128] int32 counter planes
+    """K9: counter planes from rows gathered beforehand, ``K_pad`` (a
+    multiple of 16) consecutive rows per query, zero rows in padding slots.
+    Same planes as :func:`fold_planes` on the id list that gathered them. A
+    CUDA tensor runs the kernel (or raises); a CPU tensor takes the plain
+    version."""
+    if rows.ndim != 3 or rows.shape[2] != LANE:
+        raise ValueError("rows must be [B * K_pad, S, 128]")
+    if batch <= 0 or rows.shape[0] % batch:
+        raise ValueError("the row count must be a multiple of the batch")
+    k_pad = rows.shape[0] // batch
+    if k_pad % HS_BLOCK:
+        raise ValueError("K_pad must be a multiple of 16")
+    if not 1 <= n_high <= 12:
+        raise ValueError("fold_planes_gathered: n_high must be in [1, 12]")
+    if not rows.is_cuda:
+        return fold_planes_gathered_plain(rows, batch, n_high)
+    _build.require_cuda_tensor(rows, torch.int32, "rows")
+    fn = _build.entry("fold_rows", "rx_fold_rows", _ROWS_ARGTYPES)
+    _, S, lanes = rows.shape
+    out = torch.empty(
+        (batch, TIERS + n_high, S, lanes), dtype=torch.int32,
+        device=rows.device,
+    )
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fold_planes_gathered.launches += 1
+        code = fn(
+            rows.data_ptr(), out.data_ptr(), batch, k_pad, S * lanes, n_high,
+            stream,
+        )
+    _build.check("fold_rows", code, "fold_planes_gathered")
+    return out
+
+
+#: kernel launches made by :func:`fold_planes_gathered`
+fold_planes_gathered.launches = 0
+
+#: most bytes of gathered rows alive at once (the JAX package's budget)
+GATHER_BUDGET_BYTES = 1 << 30
+
+
+def gather_chunk(batch: int, k_pad: int, row_bytes: int,
+                 budget_bytes: int = GATHER_BUDGET_BYTES) -> int:
+    """Queries per gather + fold step under the byte budget."""
+    return max(1, min(batch, budget_bytes // max(k_pad * row_bytes, 1)))
+
+
+def intersection_planes_gathered(
+    kmer_idx: torch.Tensor,  # [B, K_pad] int32, PAD_ROW-padded
+    kmer_major3: torch.Tensor,  # [65537, S, 128] int32
+    max_count: int | None = None,
+    budget_bytes: int = GATHER_BUDGET_BYTES,
+) -> torch.Tensor:  # [B, P, S, 128] int32
+    """The gathered fold of a batch: per chunk of queries, one
+    ``index_select`` of their rows out of the resident matrix and one K9
+    launch; the chunk keeps the gathered copy under ``budget_bytes`` (it
+    would be ``B * K_pad`` rows otherwise)."""
+    B, k_pad = kmer_idx.shape
+    if k_pad % HS_BLOCK:
+        raise ValueError("K_pad must be a multiple of 16")
+    n_high = n_high_for(max_count if max_count is not None else k_pad)
+    _, S, lanes = kmer_major3.shape
+    b_sub = gather_chunk(B, k_pad, S * lanes * 4, budget_bytes)
+    outs = []
+    for lo in range(0, B, b_sub):
+        ids = kmer_idx[lo : lo + b_sub].reshape(-1).long()
+        rows = kmer_major3.index_select(0, ids)
+        outs.append(fold_planes_gathered(rows, ids.numel() // k_pad, n_high))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def group_pairs_by_block(

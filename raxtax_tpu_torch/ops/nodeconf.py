@@ -17,6 +17,14 @@ either patched by a scatter or zeroed and carried in a *sideband*: the
 double-f32 prefix of their table values over the short sorted list, added to
 every range sum by a search for the range ends in that list.
 
+**Dense counts** (``gather_table``, ``significant_nodes``): the same
+double-f32 stage on a ``[B, N]`` count matrix, for the backend that builds no
+planes. The JAX package looks the table up with a one-hot contraction at
+``Precision.HIGHEST`` because a gather is slow on its chip; each output
+selects one f32 exactly, which is ``torch.gather`` by semantics, so that is
+what the port uses. ``_compact_split`` (``split`` of ``significant_nodes``)
+reads single-tip eval nodes straight from the probabilities.
+
 What differs from the JAX package: it compacts with ``top_k`` into slots of a
 sticky width that widens on overflow, packs the slots into one buffer for
 its host link (``pack_significant``) and, for want of a compaction
@@ -552,3 +560,64 @@ def max_descent(
         second = torch.where(dup, vmax, second)
         margin[act] = torch.minimum(margin[act], vmax - second)
         cur[act] = child_ids[lo + best]
+
+
+# -- dense counts -------------------------------------------------------
+
+
+def gather_table(counts: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``probs[b, n] = table[b, counts[b, n]]`` exactly; 0.0 for a count
+    outside the table (a one-hot that matches no column)."""
+    c = counts.long()
+    s_max = table.shape[1]
+    ok = (c >= 0) & (c < s_max)
+    out = torch.gather(table, 1, torch.clamp(c, 0, s_max - 1))
+    return torch.where(ok, out, torch.zeros_like(out))
+
+
+def _compact_split(
+    cum_hi, cum_lo, probs,
+    inner_starts, inner_ends, inner_pos,  # [J_in] int64
+    evalpos_of_tip,  # [num_tips] int64, -1 where the tip has no such node
+) -> SignificantSetDD:
+    """Split compaction: inner nodes through the boundary gathers,
+    single-tip eval nodes straight from ``probs`` (their confidence is
+    exactly ``probs[tip]``, low word 0). Codes are eval positions, inner
+    entries first."""
+    B, n = probs.shape
+    thr = _threshold(probs.device)
+    inner = _compact_dd_from_cum(cum_hi, cum_lo, inner_starts, inner_ends)
+    mask_in, _, vals_in = inner.parts[0]
+    evalpos = F.pad(evalpos_of_tip, (0, n - evalpos_of_tip.shape[0]), value=-1)
+    return SignificantSetDD(
+        batch=B,
+        parts=[
+            (mask_in, lambda r, j: inner_pos[j], vals_in),
+            (
+                (probs >= thr) & (evalpos >= 0)[None, :],
+                lambda r, j: evalpos[j],
+                lambda r, j: (probs[r, j], torch.zeros_like(probs[r, j])),
+            ),
+        ],
+    )
+
+
+def significant_nodes(
+    counts: torch.Tensor,  # [B, N] f32 (exact integer intersection sizes)
+    table: torch.Tensor,  # [B, s_max] f32 normalized per-size probabilities
+    node_starts: torch.Tensor,  # [J] int64 eval-node range starts
+    node_ends: torch.Tensor,  # [J] int64
+    split: tuple | None = None,  # (inner_starts, inner_ends, inner_pos, evalpos_of_tip)
+):
+    """Double-f32 significance from a dense count matrix: table lookup ->
+    compensated scan over the ``N`` tips (K6 when ``N`` is a multiple of
+    128, else the pairwise tree) -> threshold masks. Returns ``(sig,
+    (cum_hi, cum_lo))``: a :class:`SignificantSetDD` whose codes are eval
+    positions, and the prefix sums for the descent."""
+    probs = gather_table(counts, table)
+    cum_hi, cum_lo = tip_prob_cumsum_dd(probs)
+    if split is not None:
+        sig = _compact_split(cum_hi, cum_lo, probs, *split)
+    else:
+        sig = _compact_dd_from_cum(cum_hi, cum_lo, node_starts, node_ends)
+    return sig, (cum_hi, cum_lo)

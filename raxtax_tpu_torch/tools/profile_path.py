@@ -3,6 +3,8 @@ classify loop on a synthetic world.
 
     python -m raxtax_tpu_torch.tools.profile_path --refs 1000000 --batches 6
     python -m raxtax_tpu_torch.tools.profile_path --significance dd --fold sparse
+    python -m raxtax_tpu_torch.tools.profile_path --fold stream
+    python -m raxtax_tpu_torch.tools.profile_path --counts dense --refs 65536
 
 Prints one JSON object: wall seconds of the profiled window, the device's
 busy milliseconds and idle share in it, host seconds per engine phase, and
@@ -44,16 +46,18 @@ def gpu_line() -> str:
 
 
 def warm_classifier(db, queries, B: int, significance: str, fold: str,
-                    bm_scan: bool = False):
+                    bm_scan: bool = False, counts: str = "planes"):
     """A classifier of ``db`` in the given mode on the GPU, after one
     warm-up batch (kernels built, allocator warm, sticky flips taken), with
-    its phase clocks at zero."""
+    its phase clocks at zero. ``counts="dense"`` is the ``xla`` backend and
+    needs a database with the ref-major matrix."""
     import torch
 
     from ..engine.classify import make_classifier
 
     args = SimpleNamespace(
-        backend="auto", device="cuda", batch_size=B, debug_checks=False,
+        backend="xla" if counts == "dense" else "auto", device="cuda",
+        batch_size=B, debug_checks=False,
         tsv=True, skip_exact_matches=False, raw_confidence=False,
         significance=significance, fold=fold, bm_scan=bm_scan,
     )
@@ -72,7 +76,11 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--significance", choices=["exact", "dd", "auto"],
                     default="exact", help="the engine's significance mode")
-    ap.add_argument("--fold", choices=["dense", "sparse"], default="dense")
+    ap.add_argument("--fold", default="dense",
+                    choices=["dense", "sparse", "gathered", "stream"])
+    ap.add_argument("--counts", choices=["planes", "dense"], default="planes",
+                    help="dense: the count matrix of the xla backend "
+                    "(double-f32 significance, no fold)")
     ap.add_argument("--bm-scan", action="store_true",
                     help="dd mode: the bit-major scan (packed layout)")
     ap.add_argument("--trace", default="", help="also write a chrome trace here")
@@ -88,12 +96,16 @@ def main(argv=None) -> int:
 
     gpu = gpu_line()
     B = a.batch_size
-    db, queries, build_s = build_world(a.refs, B * (a.batches + 1))
+    db, queries, build_s = build_world(
+        a.refs, B * (a.batches + 1), with_ref_major=a.counts == "dense"
+    )
     if a.bm_scan:
         from ..db.database import ensure_kmer_layout
 
         db = ensure_kmer_layout(db, "packed")
-    clf = warm_classifier(db, queries, B, a.significance, a.fold, a.bm_scan)
+    clf = warm_classifier(
+        db, queries, B, a.significance, a.fold, a.bm_scan, a.counts
+    )
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -121,6 +133,7 @@ def main(argv=None) -> int:
     out = {
         "gpu": gpu, "refs": a.refs, "batch": B, "batches": a.batches,
         "significance": a.significance, "fold": a.fold, "bm_scan": a.bm_scan,
+        "counts": a.counts,
         "fold_still_sparse": bool(clf._sparse), "host_replays": clf.host_replays,
         "queries": done, "db_build_s": round(build_s, 2),
         "wall_s": wall_s, "queries_per_s": done / wall_s,

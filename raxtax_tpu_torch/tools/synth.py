@@ -51,14 +51,16 @@ def synth_queries(fam: np.ndarray, n: int, seed: int = 7):
     return [(f"q{i}", enc[i]) for i in range(n)]
 
 
-def build_world(n_refs: int, n_queries: int):
-    """(database in the flat postings layout, queries, build seconds)."""
+def build_world(n_refs: int, n_queries: int, with_ref_major: bool = False):
+    """(database in the flat postings layout, queries, build seconds).
+    ``with_ref_major`` also builds the ``[n_refs, 2048]`` ref-major matrix
+    the dense-count backend reads."""
     from ..db.database import build_database
 
     fam, rng = synth_fam()
     t0 = time.time()
     lineages, seqs = synth_records(n_refs, fam, rng)
     db = build_database(
-        lineages, seqs, with_ref_major=False, kmer_layout="flat"
+        lineages, seqs, with_ref_major=with_ref_major, kmer_layout="flat"
     )
     return db, synth_queries(fam, n_queries), time.time() - t0

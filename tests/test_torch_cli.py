@@ -1,6 +1,6 @@
 """The port's command line on the CPU (``--device cpu``): the committed
-golden fixture byte for byte, resume after an interrupted run, and the flags
-whose code paths are not ported yet."""
+golden fixture byte for byte (every ``--backend``), resume after an
+interrupted run, and the flags whose code paths are not ported yet."""
 
 from pathlib import Path
 
@@ -116,8 +116,6 @@ def test_only_db_then_skip_db_and_oracle_backend(tmp_path):
         (["--num-processes", "2"], "--num-processes"),
         (["--process-id", "0"], "--process-id"),
         (["--global-mesh"], "--global-mesh"),
-        (["--backend", "xla"], "--backend xla"),
-        (["--backend", "stream"], "--backend stream"),
         (["--descent", "device"], "--descent device"),
         (["--trace", "tracedir"], "--trace"),
     ],
@@ -162,6 +160,12 @@ def test_version_and_usage_errors(tmp_path, capsys):
         ({"RAXTAX_EXACT": "1", "RAXTAX_SPARSE_FOLD": "0"}, ("exact", "dense", False)),
         ({"RAXTAX_EXACT": "0", "RAXTAX_SPARSE_FOLD": "1"}, ("dd", "sparse", False)),
         ({"RAXTAX_EXACT": "auto", "RAXTAX_BM_SCAN": "1"}, ("auto", "dense", True)),
+        ({"RAXTAX_FUSED_GATHER": "0"}, ("exact", "gathered", False)),
+        ({"RAXTAX_FUSED_GATHER": "0", "RAXTAX_SPARSE_FOLD": "0"},
+         ("exact", "gathered", False)),
+        ({"RAXTAX_FUSED_GATHER": "0", "RAXTAX_SPARSE_FOLD": "1"},
+         ("exact", "sparse", False)),
+        ({"RAXTAX_FUSED_GATHER": "1"}, ("exact", "dense", False)),
     ],
 )
 def test_engine_mode_from_the_jax_environment_names(env, want):
@@ -169,6 +173,8 @@ def test_engine_mode_from_the_jax_environment_names(env, want):
 
     got = engine_mode_from_env(env)
     assert (got["significance"], got["fold"], got["bm_scan"]) == want
+    assert got["split_sig"] is False
+    assert engine_mode_from_env({"RAXTAX_SPLIT_SIG": "1"})["split_sig"] is True
     with pytest.raises(ValueError):
         engine_mode_from_env({"RAXTAX_EXACT": "yes"})
 
@@ -184,3 +190,48 @@ def test_golden_bytes_in_dd_mode_through_the_environment(tmp_path, monkeypatch, 
     assert run_cli(out, "--tsv", "--debug-checks") == 0
     assert (out / "raxtax.out").read_bytes() == (DATA / "golden_raxtax.out").read_bytes()
     assert (out / "raxtax.tsv").read_bytes() == (DATA / "golden_raxtax.tsv").read_bytes()
+
+
+@pytest.mark.parametrize(
+    "backend,env",
+    [
+        ("xla", {}),
+        ("xla", {"RAXTAX_SPLIT_SIG": "1"}),
+        ("pallas", {}),
+        ("pallas", {"RAXTAX_FUSED_GATHER": "0", "RAXTAX_EXACT": "0"}),
+        ("stream", {}),
+        ("stream", {"RAXTAX_EXACT": "0"}),
+    ],
+)
+def test_golden_bytes_for_every_backend(tmp_path, monkeypatch, backend, env):
+    """``--backend xla|pallas|stream`` run on the port's engine and give the
+    golden bytes; the launch counters stay untouched on the CPU."""
+    from raxtax_tpu_torch.ops.intersect_fold import fold_planes_gathered
+    from raxtax_tpu_torch.ops.intersect_stream import fold_planes_stream
+
+    for name in ("RAXTAX_EXACT", "RAXTAX_SPARSE_FOLD", "RAXTAX_FUSED_GATHER",
+                 "RAXTAX_BM_SCAN", "RAXTAX_SPLIT_SIG"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    out = tmp_path / "out"
+    assert run_cli(out, "--tsv", "--debug-checks", "--backend", backend) == 0
+    assert (out / "raxtax.out").read_bytes() == (DATA / "golden_raxtax.out").read_bytes()
+    assert (out / "raxtax.tsv").read_bytes() == (DATA / "golden_raxtax.tsv").read_bytes()
+    assert fold_planes_gathered.launches == 0 and fold_planes_stream.launches == 0
+    log = (out / "raxtax.log").read_text()
+    assert ("Skipped the ref-major" in log) == (backend != "xla")
+
+
+def test_xla_backend_needs_the_ref_major_matrix(tmp_path):
+    """A binary database written without the ref-major matrix cannot feed
+    the dense-count backend: the run fails with the engine's message and
+    writes no result."""
+    first = tmp_path / "first"
+    assert run_cli(first, "--backend", "stream") == 0
+    rxdb = next(first.glob("*.bin.rxdb"))
+    out = tmp_path / "out"
+    rc = main(["-d", str(rxdb), "-i", str(QUERIES), "-o", str(out),
+               "--device", "cpu", "--backend", "xla"])
+    assert rc == 75  # TEMPFAIL
+    assert "ref-major" in (out / "raxtax.log").read_text()

@@ -1,7 +1,9 @@
 """K8 and the planes wire on the CPU: ``planes_high_counts`` and
 ``compress_planes`` of the port against the JAX package (Pallas kernel in
 interpret mode) on the same planes made from a numpy seed; the host decoders
-against the known counts. Everything is an integer: tolerance 0."""
+against the known counts; the nibble wire of the dense-count backend
+(``compress_counts`` / ``decompress_rows``) against the JAX package's.
+Everything is an integer: tolerance 0."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,7 @@ from raxtax_tpu.ops import planes as jpl
 from raxtax_tpu_torch import native
 from raxtax_tpu_torch.ops import compress as tc
 from raxtax_tpu_torch.ops import planes as tpl
-from tests.test_torch_common import encode_planes, to_i32
+from tests.test_torch_common import encode_planes, to_i32, to_u32
 
 B, N, P, BUDGET = 4, 8192, 8, 40
 
@@ -100,3 +102,39 @@ def test_wire_equals_jax_and_decodes_to_the_counts(layout):
         )
         want = np.concatenate(([0.0], np.cumsum(table[counts[0, : N - 100]])))
         np.testing.assert_array_equal(cum, want)
+
+
+@pytest.mark.parametrize("n,budget", [(203, 64), (256, 8), (40, 64)])
+def test_nibble_wire_equals_jax_and_round_trips(n, budget):
+    rng = np.random.default_rng(n)
+    counts = rng.integers(0, 14, size=(4, n))
+    hot = rng.random((4, n)) < 0.08
+    counts[hot] = rng.integers(16, 400, size=int(hot.sum()))
+    counts[3] = 15  # on the clamp, not over it
+    cf = counts.astype(np.float32)
+    jp, ji, jv, jn = (np.asarray(a) for a in
+                      jc.compress_counts(jnp.asarray(cf), budget=budget))
+    plane, idx, val, n_over = tc.compress_counts(torch.from_numpy(cf), budget=budget)
+    assert plane.dtype == torch.int32 and plane.shape == (4, -(-n // 8))
+    np.testing.assert_array_equal(to_u32(plane), jp)
+    np.testing.assert_array_equal(n_over.numpy(), jn)
+    idx, val = idx.numpy(), val.numpy()
+    for b in range(4):
+        m = min(int(jn[b]), budget)
+        if jn[b] <= budget:  # the JAX list is exact whenever it fits
+            np.testing.assert_array_equal(idx[b, :m], ji[b, :m])
+            np.testing.assert_array_equal(val[b, :m], jv[b, :m])
+        assert (idx[b, m:] == tc.OVER_SENTINEL).all() and not val[b, m:].any()
+    rows = [2, 0, 3]
+    got, over = tc.decompress_rows(
+        to_u32(plane), idx, val.astype(np.uint16), n_over.numpy(), rows, n, budget=budget
+    )
+    want, jover = jc.decompress_rows(jp, ji, jv, jn, rows, n, budget=budget)
+    assert over == jover
+    for i, b in enumerate(rows):
+        if i not in over:
+            np.testing.assert_array_equal(got[i], counts[b])
+            np.testing.assert_array_equal(got[i], want[i])
+    assert n_over[3] == 0
+    if n == 256:
+        assert over  # eight slots do not hold a row's overflow

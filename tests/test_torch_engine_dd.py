@@ -278,6 +278,10 @@ def test_mode_arguments_are_checked():
     with pytest.raises(ValueError):
         DeviceClassifier.create(db, device="cpu", significance="f32")
     with pytest.raises(ValueError):
-        DeviceClassifier.create(db, device="cpu", fold="stream")
+        DeviceClassifier.create(db, device="cpu", fold="blocked")
+    with pytest.raises(ValueError):
+        DeviceClassifier.create(db, device="cpu", counts="sparse")
+    with pytest.raises(ValueError):  # the planes backends take split2
+        DeviceClassifier.create(db, device="cpu", split_sig=True)
     d = DeviceClassifier.create(db, device="cpu")
     assert d.significance == "exact" and not d._sparse and d._exact_mode

@@ -159,3 +159,60 @@ def test_dd_cumsum_bitmajor_kernel_equals_plain(cuda):
         p_hi, p_lo = pl.dd_cumsum_plain(flat, pl.DD_TILE_ROWS_BITMAJOR)
         assert torch.equal(hi.view(torch.int32), p_hi.view(torch.int32))
         assert torch.equal(lo.view(torch.int32), p_lo.view(torch.int32))
+
+
+def _fold_batch(rng, cuda, n_words=384, sparse_rows=True):
+    """A postings matrix with sparse rows (as real postings are) and a batch
+    with an empty query, a PAD_ROW-only tail and a full query."""
+    km = rng.integers(0, 2**32, size=(65537, n_words), dtype=np.uint64).astype(np.uint32)
+    if sparse_rows:
+        km &= rng.integers(0, 2**32, size=km.shape, dtype=np.uint64).astype(np.uint32)
+        km[:, rng.random(n_words) < 0.5] = 0
+    km[65536] = 0
+    kc = np.array([0, 5, 16, 17, 100, 128, 1, 64, 33], np.int32)
+    idx = np.full((kc.size, 128), 65536, np.int32)
+    for b, k in enumerate(kc):
+        idx[b, :k] = np.sort(rng.choice(4000, k, replace=False))
+    km3 = torch.from_numpy(km.view(np.int32)).reshape(65537, -1, 128).to(cuda)
+    return torch.from_numpy(idx).to(cuda), torch.from_numpy(kc).to(cuda), km3
+
+
+def test_gathered_fold_kernel_equals_plain_and_dense(cuda):
+    """K9 against its plain version and against K1, whole and chunked."""
+    from raxtax_tpu_torch.ops import intersect_fold as tf
+
+    idx, kc, km3 = _fold_batch(np.random.default_rng(7), cuda)
+    B, k_pad = idx.shape
+    dense = tf.fold_planes(idx, kc, km3, max_count=k_pad)
+    rows = km3.index_select(0, idx.reshape(-1).long())
+    got = tf.fold_planes_gathered(rows, B, dense.shape[1] - 4)
+    assert torch.equal(got, tf.fold_planes_gathered_plain(rows, B, got.shape[1] - 4))
+    assert torch.equal(got, dense)
+    before = tf.fold_planes_gathered.launches
+    chunked = tf.intersection_planes_gathered(
+        idx, km3, max_count=k_pad, budget_bytes=4 * k_pad * 384 * 4
+    )
+    assert tf.fold_planes_gathered.launches - before == 3  # 9 queries, 4 a chunk
+    assert torch.equal(chunked, dense)
+
+
+def test_stream_fold_kernel_equals_plain_and_dense(cuda):
+    """K10 against its plain version and against K1: one group, several
+    groups with a ragged last one, and a ragged column tile."""
+    from raxtax_tpu_torch.ops import intersect_fold as tf
+    from raxtax_tpu_torch.ops import intersect_stream as ts
+
+    for n_words, sparse in ((384, True), (256, False)):
+        idx, kc, km3 = _fold_batch(np.random.default_rng(8), cuda, n_words, sparse)
+        B, k_pad = idx.shape
+        dense = tf.fold_planes(idx, kc, km3, max_count=k_pad)
+        P = ts.n_planes_for(k_pad)
+        assert P == dense.shape[1]
+        for group in (B, 4, 1):
+            pairs = ts.build_pairs(idx, group)
+            got = ts.fold_planes_stream(*pairs, km3, B, group, P)
+            assert torch.equal(got, dense)
+            assert torch.equal(
+                got, ts.fold_planes_stream_plain(pairs[0], pairs[1], km3, B, P)
+            )
+        assert torch.equal(ts.intersection_planes_stream(idx, km3, k_pad), dense)

@@ -19,6 +19,11 @@ def test_import_pulls_no_jax():
         "import raxtax_tpu_torch, raxtax_tpu_torch.cli\n"
         "import raxtax_tpu_torch.engine.device, raxtax_tpu_torch.convert\n"
         "import raxtax_tpu_torch.engine.classify\n"
+        "import raxtax_tpu_torch.ops.intersect_stream\n"
+        "import raxtax_tpu_torch.ops.intersect_xla, raxtax_tpu_torch.ops.bitops\n"
+        "import raxtax_tpu_torch.ops.histogram\n"
+        "import raxtax_tpu_torch.tools.compare_modes\n"
+        "import raxtax_tpu_torch.tools.profile_path\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'raxtax_tpu' or m.startswith('raxtax_tpu.')]\n"
         "print('BAD', bad)\n"
@@ -95,7 +100,12 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     there on a machine that cannot build."""
     import torch
 
-    from raxtax_tpu_torch.ops import exactscan, intersect_fold, planes
+    from raxtax_tpu_torch.ops import (
+        exactscan,
+        intersect_fold,
+        intersect_stream,
+        planes,
+    )
 
     class FakeCuda(torch.Tensor):
         @property
@@ -110,6 +120,8 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(planes, "planes_probs_plain", boom)
     monkeypatch.setattr(intersect_fold, "fold_planes_plain", boom)
     monkeypatch.setattr(intersect_fold, "fold_planes_sparse_plain", boom)
+    monkeypatch.setattr(intersect_fold, "fold_planes_gathered_plain", boom)
+    monkeypatch.setattr(intersect_stream, "fold_planes_stream_plain", boom)
     monkeypatch.setattr(planes, "planes_high_counts_plain", boom)
     monkeypatch.setattr(planes, "dd_cumsum_plain", boom)
     if torch.cuda.is_available():
@@ -139,3 +151,25 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     xb = torch.zeros((2, 32, 1, 128), dtype=torch.float32).as_subclass(FakeCuda)
     with pytest.raises((RuntimeError, ValueError, TypeError)):
         planes.dd_cumsum_bitmajor(xb)
+    rows = torch.zeros((2 * 16, 1, 128), dtype=torch.int32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        intersect_fold.fold_planes_gathered(rows, 2, 2)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        intersect_fold.intersection_planes_gathered(idx, km)
+    flat = torch.zeros(2 * 32, dtype=torch.int32).as_subclass(FakeCuda)
+    ptr = torch.zeros(1, dtype=torch.int32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        intersect_stream.fold_planes_stream(flat, flat, ptr, ptr, km, 2, 2, 6)
+
+
+def test_the_new_kernel_sources_are_listed_for_the_build():
+    """Every ``csrc/*.cu`` is a build target, and the two folds of this
+    slice name the C entry points their sources export."""
+    from raxtax_tpu_torch.ops import _build
+
+    stems = {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    assert stems == set(_build.KERNEL_SOURCES) and len(stems) == 9
+    assert "rx_fold_rows" in (PKG / "csrc" / "fold_rows.cu").read_text()
+    assert "rx_fold_stream" in (PKG / "csrc" / "fold_stream.cu").read_text()
+    assert '"rx_fold_rows"' in (PKG / "ops" / "intersect_fold.py").read_text()
+    assert '"rx_fold_stream"' in (PKG / "ops" / "intersect_stream.py").read_text()
