@@ -5,7 +5,7 @@ Run ``python3 chip_smoke.py`` from the repository root on a machine with one
 NVIDIA Hopper GPU, the CUDA toolkit (``nvcc``) and PyTorch built for CUDA.
 It needs no arguments, no network and no JAX. It
 
-1. builds the nine CUDA sources (ten kernels) from
+1. builds the eleven CUDA sources (thirteen kernels) from
    ``raxtax_tpu_torch/csrc`` (``env``),
 2. drives the exact-f64 classify path end to end on a 65,536-reference
    synthetic database through ``run_queries`` and checks the output files
@@ -30,7 +30,19 @@ It needs no arguments, no network and no JAX. It
    reports throughput, phase times, peak memory, pairs per query, host
    replays and whether the fold flipped to dense (``path_1m_dd``),
 8. drives the dense-count backend at that size for two batches, where its
-   scan takes the pairwise tree (``path_1m_xla``).
+   scan takes the pairwise tree (``path_1m_xla``),
+9. runs the software-f64 probes through ``tools/probe_f64.py``: K11 on
+   about 16.7M adversarial pairs against its plain version and against the
+   card's own f64 add and subtract, K12 at 256 queries over 65,536 and
+   1,048,576 tips against K5 on the same values (``probe_f64``),
+10. times K13's seven operation chains at 5,000,000 steps after holding their
+    bits against the plain version (``probe_ops``),
+11. fuzzes the engine against the oracle through ``tools/fuzz_hardware.py``
+    for about a minute, at least 24 trials (``fuzz``),
+12. sweeps whole CLI runs through ``tools/runtime_memory.py`` on a synthetic
+    FASTA from ``tools/make_synth_fasta.py``, one rep at 50,000 records and
+    one at the largest of 1M / 500k / 200k the budget allows: runtime, peak
+    host RSS, steady queries/s, exit code (``runtime_memory``).
 
 Each phase prints one JSON line; the ``kernels`` line carries, per kernel,
 its launches on the main path that runs it, its time, its plain version's
@@ -42,6 +54,7 @@ path: without a GPU the script exits at once with code 1.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -186,6 +199,7 @@ def check_oracle(db, queries, outs, tsvs, n: int, skip=False, raw=False):
 
 
 def launch_counts():
+    from raxtax_tpu_torch.ops.exactf64 import probe_f64_ew, probe_f64_scan
     from raxtax_tpu_torch.ops.exactscan import exact_cumsum
     from raxtax_tpu_torch.ops.intersect_fold import (
         fold_planes,
@@ -193,6 +207,7 @@ def launch_counts():
         fold_planes_sparse,
     )
     from raxtax_tpu_torch.ops.intersect_stream import fold_planes_stream
+    from raxtax_tpu_torch.ops.opchain import probe_op_chain
     from raxtax_tpu_torch.ops.planes import (
         dd_cumsum,
         dd_cumsum_bitmajor,
@@ -209,6 +224,8 @@ def launch_counts():
         "dd_cumsum_bitmajor": dd_cumsum_bitmajor,
         "fold_planes_gathered": fold_planes_gathered,
         "fold_planes_stream": fold_planes_stream,
+        "probe_f64_ew": probe_f64_ew, "probe_f64_scan": probe_f64_scan,
+        "probe_op_chain": probe_op_chain,
     }
 
 
@@ -392,24 +409,11 @@ def fold_compare(state, queries, with_plain: bool) -> dict:
     }
 
 
-def host_table(hist: torch.Tensor, ks: np.ndarray, s_max: int) -> np.ndarray:
-    """The host model's ``[B, s_max]`` f64 probability table of a batch,
-    from its intersection-size histograms."""
-    from raxtax_tpu_torch.prob.model import KTableCache, normalized_size_probs
-
-    hist_h = hist.cpu().numpy()
-    cache = KTableCache()
-    table64 = np.zeros((hist_h.shape[0], s_max), np.float64)
-    for b in range(hist_h.shape[0]):
-        ps, _ = normalized_size_probs(hist_h[b], int(ks[b]), cache)
-        table64[b, : ps.shape[0]] = ps
-    return table64
-
-
 def batch_probs32(db, queries, state) -> torch.Tensor:
     """``[B, 32, S, 128]`` f32 bit-major tip probabilities of one batch on
     ``state``'s database: what the double-f32 path hands its scan."""
     from raxtax_tpu_torch.ops import intersect_fold, planes as pl
+    from raxtax_tpu_torch.tools.profile_stages import host_tables
 
     kmer_idx, ks, k_pad, s_max, _, _ = batch_inputs(queries)
     d_idx = torch.from_numpy(kmer_idx).to(state.device)
@@ -417,7 +421,7 @@ def batch_probs32(db, queries, state) -> torch.Tensor:
     planes = intersect_fold.fold_planes(
         d_idx, d_ks, state.kmer_major3, max_count=k_pad)
     hist = pl.planes_histogram(planes, s_max, db.num_tips)
-    d_tab = torch.from_numpy(host_table(hist, ks, s_max)).to(state.device)
+    d_tab = torch.from_numpy(host_tables(hist, ks, s_max)).to(state.device)
     return pl.planes_probs(planes, d_tab.float())
 
 
@@ -788,6 +792,8 @@ def phase_kernels(db, queries, state) -> list[dict]:
     bit patterns), with times and bounds. ``state`` carries the block CSR of
     the sparse fold."""
     from raxtax_tpu_torch.ops import exactscan, intersect_fold, planes as pl
+    from raxtax_tpu_torch.tools.profile_stages import host_tables
+
     dev = state.device
     kmer_idx, ks, k_pad, s_max, flat_k, off_k = batch_inputs(queries)
     d_idx = torch.from_numpy(kmer_idx).to(dev)
@@ -872,7 +878,7 @@ def phase_kernels(db, queries, state) -> list[dict]:
     })
 
     # K4 ------------------------------------------------------------------
-    table64 = host_table(hist, ks, s_max)
+    table64 = host_tables(hist, ks, s_max)
     d_tab = torch.from_numpy(table64).to(dev)
     probs = pl.planes_probs(planes, d_tab)
     torch.cuda.synchronize()
@@ -1189,6 +1195,187 @@ def phase_path_large(per_ref_s: float):
     note(f"dense-count backend driven in {time.time() - t0:.1f}s")
     return kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla
 
+# -- the scripts path: probes, fuzz, sweep -----------------------------------
+
+#: adversarial pairs drawn for K11 (about 16.7M survive the overflow cut)
+PROBE_PAIRS = 17_000_000
+PROBE_ITERS = 5_000_000  # the TPU probe's step count
+PROBE_CHECK_ITERS = 256  # steps at which the chains meet their plain version
+
+
+def phase_probe_f64():
+    """K11 and K12 through ``tools/probe_f64.py`` at its shapes, every check
+    bit for bit: ``(the phase's line, [K11 entry, K12 entry])``."""
+    from raxtax_tpu_torch.ops.exactf64 import OPS_PER_ADD, OPS_PER_SUB
+    from raxtax_tpu_torch.tools import probe_f64 as pf
+
+    dev = torch.device("cuda")
+    reset_counts()
+    lines = pf.run(dev, PROBE_PAIRS, pf.SCRIPT_TIPS, BATCH,
+                   plain_pairs=PROBE_PAIRS, plain_tips=512)
+    counts = read_counts()
+    for line in lines:
+        if not pf.passed(line):
+            raise AssertionError(f"probe_f64: {json.dumps(line)}")
+    ew = next(l for l in lines if l["probe"] == "ew_adversarial")
+    if ew["pairs"] < 16_000_000 or ew["plain_pairs"] != ew["pairs"]:
+        raise AssertionError(f"probe_f64: {ew['pairs']} pairs checked")
+    scans = [l for l in lines if l["probe"] == "scan"]
+    if [l["N"] for l in scans] != list(pf.SCRIPT_TIPS):
+        raise AssertionError("probe_f64: a scan size is missing")
+    for k in ("probe_f64_ew", "probe_f64_scan"):
+        if counts[k] < 2:
+            raise AssertionError(f"probe_f64: {k} launched {counts[k]} times")
+    n = ew["pairs"]
+    t_bytes = n * 32 / PEAK_BYTES_PER_S
+    t_ops = n * (OPS_PER_ADD + OPS_PER_SUB) / PEAK_INT32_OPS
+    k11 = {
+        "name": "probe_f64_ew", "route": "cuda",
+        "source": "raxtax_tpu_torch/csrc/probe_f64.cu",
+        "replaces": "scripts/probe_mosaic_f64.py:62",
+        "max_abs_err": 0.0, "ms": ew["ms"], "plain_ms": ew["plain_ms_host_clock"],
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": ew["hardware_add_ms"],
+        "library": "torch add in float64 (a + b only; the card's f64 unit)",
+        "pairs": n, "bits_equal_hardware_f64": True,
+        "ms_8x128": next(l for l in lines if l["probe"] == "ew_8x128")["ms"],
+    }
+    big = scans[-1]
+    B, N = big["B"], big["N"]
+    t_bytes = B * N * 16 / PEAK_BYTES_PER_S
+    t_ops = B * N * OPS_PER_ADD / PEAK_INT32_OPS
+    p = pf.scan_inputs(B, N, dev, seed=N)
+    yard_ms = cuda_ms(lambda: torch.cumsum(p, dim=1))
+    del p
+    torch.cuda.empty_cache()
+    k12 = {
+        "name": "probe_f64_scan", "route": "cuda",
+        "source": "raxtax_tpu_torch/csrc/probe_f64.cu",
+        "replaces": "scripts/probe_mosaic_f64.py:125",
+        "max_abs_err": 0.0, "ms": big["ms"],
+        "plain_ms": big["plain_ms_host_clock"], "plain_tips": big["plain_tips"],
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "cumsum_yardstick_ms": yard_ms,  # other rounding: not the function
+        "shape": {"G": B // 128, "N": N, "lanes": 128},
+        "chain_adds": N, "ns_per_chain_step": big["ns_per_chain_step"],
+        "k5_ms_same_values": big["k5_ms"],
+        "ms_by_tips": {l["N"]: l["ms"] for l in scans},
+        "k5_ms_by_tips": {l["N"]: l["k5_ms"] for l in scans},
+        "bits_equal_k5": True,
+    }
+    line = {"phase": "probe_f64", "checks": lines, "launches": counts}
+    return line, [k11, k12]
+
+
+def phase_probe_ops():
+    """K13's seven chains through ``tools/probe_ops.py``: ``(the phase's
+    line, K13 entry)``."""
+    from raxtax_tpu_torch.ops.opchain import CHAINS, OPS_PER_STEP
+    from raxtax_tpu_torch.tools import probe_ops as po
+
+    dev = torch.device("cuda")
+    reset_counts()
+    lines = [po.chain_line(c, dev, PROBE_ITERS, PROBE_CHECK_ITERS) for c in CHAINS]
+    counts = read_counts()
+    bad = [l["chain"] for l in lines if not l["bits_equal_plain"]]
+    if bad:
+        raise AssertionError(f"probe_ops: chains differ from the plain version: {bad}")
+    if counts["probe_op_chain"] < len(CHAINS):
+        raise AssertionError(f"probe_ops: launches {counts['probe_op_chain']}")
+    ops = 8 * 128 * PROBE_ITERS * sum(OPS_PER_STEP.values())
+    t_ops = ops / PEAK_INT32_OPS
+    t_bytes = 8 * 128 * 12 * len(CHAINS) / PEAK_BYTES_PER_S
+    k13 = {
+        "name": "probe_op_chain", "route": "cuda",
+        "source": "raxtax_tpu_torch/csrc/probe_ops.cu",
+        "replaces": "scripts/probe_mosaic_perf.py:55",
+        "max_abs_err": 0.0,
+        # the seven chains, one launch each at PROBE_ITERS steps
+        "ms": sum(l["ms"] for l in lines),
+        # the plain version at PROBE_CHECK_ITERS steps (a torch loop)
+        "plain_ms": sum(l["plain_ms_host_clock"] for l in lines),
+        "plain_iters": PROBE_CHECK_ITERS,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "iters": PROBE_ITERS,
+        "ns_per_iter": {l["chain"]: l["ns_per_iter"] for l in lines},
+    }
+    return {"phase": "probe_ops", "chains": lines, "launches": counts}, k13
+
+
+def phase_fuzz() -> dict:
+    """``tools/fuzz_hardware.py`` on the card for about a minute (never under
+    24 trials): 0 mismatches against the oracle."""
+    from raxtax_tpu_torch.tools import fuzz_hardware as fz
+
+    out: list[str] = []
+    reset_counts()
+    tally = fz.run(trials=10_000, seed0=2000, device="cuda", seconds=60.0,
+                   out=out.append)
+    counts = read_counts()
+    if tally["mismatches"] or tally["trials"] < fz.MIN_TRIALS:
+        raise AssertionError(
+            "fuzz: " + json.dumps(tally) + "\n" + "\n".join(out[-20:]))
+    torch.cuda.empty_cache()
+    return {"phase": "fuzz", **tally, "not_drawn": fz.NOT_DRAWN,
+            "launches": counts}
+
+
+def phase_runtime_memory(per_ref_s: float) -> dict:
+    """``tools/runtime_memory.py``, one rep, at 50,000 records and at the
+    largest of 1M / 500k / 200k records that the budget left allows (judged
+    from the large phase's build rate per reference and the 50,000-record
+    run). Every row's CLI run must exit 0."""
+    from raxtax_tpu_torch.tools import make_synth_fasta, runtime_memory as rm
+
+    torch.cuda.empty_cache()  # the CLI runs in a child with its own context
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def sweep_at(n: int) -> dict:
+            fasta = os.path.join(tmp, f"synth_{n}.fasta")
+            t0 = time.time()
+            make_synth_fasta.write_synth_fasta(n, fasta)
+            records = rm.read_fasta_records(fasta)
+            host_s = time.time() - t0
+            row = rm.sweep(records, [n], 1, os.path.join(tmp, "rm.csv"),
+                           "auto", "cuda", log=note)[0]
+            del records
+            os.unlink(fasta)
+            if row["returncode"] != 0:
+                raise AssertionError(f"runtime_memory: {json.dumps(row)}")
+            row["fasta_write_read_s"] = host_s
+            return row
+
+        rows.append(sweep_at(50_000))
+        small = rows[0]
+        per_query = small["classify_s"] / small["queries"]
+        per_rec_host = small["fasta_write_read_s"] / 50_000
+        n_large = 200_000
+        for cand in (1_000_000, 500_000):
+            # start-up, the FASTA written and read, parse + build + save at
+            # three times the large phase's build rate per reference, and a
+            # tenth of the records classified at 2.5 times the 50k cost per
+            # query (a larger database slows the classify phase)
+            est = 60.0 + cand * (per_rec_host + 3.0 * per_ref_s) \
+                + 0.1 * cand * 2.5 * per_query
+            if est < remaining():
+                n_large = cand
+                break
+        note(f"runtime_memory: {n_large} records ({remaining():.0f}s left)")
+        rows.append(sweep_at(n_large))
+    return {
+        "phase": "runtime_memory", "reps": 1, "backend": "auto",
+        "rows": [{k: r[k] for k in ("size", "runtime_s", "peak_rss_mb",
+                                    "hwm_peak_mb", "rss_peak_mb",
+                                    "child_maxrss_mb",
+                                    "qps_steady", "classify_s", "queries",
+                                    "returncode", "fasta_write_read_s")}
+                 for r in rows],
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1196,6 +1383,11 @@ def main() -> int:
         return 1
     env = phase_env()
     say(env)
+    probe_line, probe_kernels = phase_probe_f64()
+    say(probe_line)
+    ops_line, k13 = phase_probe_ops()
+    say(ops_line)
+    note("probes done")
     db, queries, build_s = build_world(65536)
     note(f"65k world built in {build_s:.1f}s")
     p65 = phase_path_65k(db, queries, build_s)
@@ -1209,11 +1401,15 @@ def main() -> int:
     del db
     kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla = phase_path_large(
         per_ref_s)
+    per_ref_s_large = p1m["db_build_s"] / p1m["refs"]
     say(p1m)
     say(p1m_stream)
     say(p1m_gathered)
     say(p1m_dd)
     say(p1m_xla)
+    say(phase_fuzz())
+    note("fuzz done; the runtime / memory sweep")
+    say(phase_runtime_memory(per_ref_s_large))
     # launches: from the main path that runs the kernel — the exact path at
     # full size (with the dense, the stream and the gathered fold), the
     # double-f32 path at full size, and for what only a
@@ -1228,6 +1424,8 @@ def main() -> int:
         ("path_65k_dd", p65_dd["launches"], ("fold_planes_sparse",)),
         ("path_65k_dd bm_scan", p65_dd["bm_scan"]["launches"],
          ("dd_cumsum_bitmajor",)),
+        ("probe_f64", probe_line["launches"], ("probe_f64_ew", "probe_f64_scan")),
+        ("probe_ops", ops_line["launches"], ("probe_op_chain",)),
     )
     # K7's entry is the comparison at the packed 65,536-reference shape, the
     # one its path launches; its numbers at the large size ride along
@@ -1237,6 +1435,7 @@ def main() -> int:
         ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err", "shape")
     }
     kernels[i7] = k7_on_path
+    kernels += probe_kernels + [k13]
     for k in kernels:
         for phase, counts, names in sources:
             if k["name"] in names and counts[k["name"]] > 0:

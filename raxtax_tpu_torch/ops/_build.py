@@ -4,7 +4,7 @@ Each ``*.cu`` source becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``.
 All sources are compiled at once, one ``nvcc`` process each, into the
 package's ``build/`` directory (not under version control); a library is
-reused while its source and the shared header are unchanged. A failed build
+reused while its source and the shared headers are unchanged. A failed build
 raises with the compiler's output: there is no fallback for a CUDA tensor.
 
 The binding convention: every pointer and the stream are ``c_void_p``
@@ -34,6 +34,7 @@ BUILD_DIR = Path(
 KERNEL_SOURCES = (
     "fold_planes", "planes_hist", "planes_probs", "exact_cumsum",
     "fold_sparse", "planes_high", "dd_cumsum", "fold_rows", "fold_stream",
+    "probe_f64", "probe_ops",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,8 +59,10 @@ def find_nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
+    # every shared header goes into every library's name: a source may
+    # include any of them, and an edited header must not leave a stale build
     h = hashlib.sha1()
-    for src in (CSRC / f"{stem}.cu", CSRC / "rx_common.cuh"):
+    for src in (CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:12]}.so"

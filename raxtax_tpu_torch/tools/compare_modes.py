@@ -90,7 +90,7 @@ def main(argv=None) -> int:
         seen = {}
         for name in names[k:] + names[:k]:
             t0 = time.time()
-            done = drive(clfs[name], queries, B)
+            done = len(drive(clfs[name], queries, B))
             torch.cuda.synchronize()
             seen[name] = done / (time.time() - t0)
             passes.append((name, seen[name]))

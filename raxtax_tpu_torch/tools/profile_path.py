@@ -22,18 +22,19 @@ from collections import deque
 from types import SimpleNamespace
 
 
-def drive(clf, queries, B: int) -> int:
+def drive(clf, queries, B: int) -> list:
     """The three-deep submit / prepare / finalize loop over ``queries`` in
-    batches of ``B``; returns the number of queries classified."""
-    done = 0
+    batches of ``B``, as ``run_queries`` runs it; returns the results in
+    query order."""
+    done: list = []
     prepared: deque = deque()
     for lo in range(0, len(queries), B):
         st = clf.submit_batch(queries[lo : lo + B])
         if len(prepared) >= 2:
-            done += len(clf.finalize_batch(prepared.popleft()))
+            done += clf.finalize_batch(prepared.popleft())
         prepared.append(clf.prepare_batch(st))
     while prepared:
-        done += len(clf.finalize_batch(prepared.popleft()))
+        done += clf.finalize_batch(prepared.popleft())
     return done
 
 
@@ -109,7 +110,7 @@ def main(argv=None) -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        done = drive(clf, queries[B:], B)
+        done = len(drive(clf, queries[B:], B))
         torch.cuda.synchronize()
         wall_s = time.time() - t0
     if a.trace:

@@ -216,3 +216,61 @@ def test_stream_fold_kernel_equals_plain_and_dense(cuda):
                 got, ts.fold_planes_stream_plain(pairs[0], pairs[1], km3, B, P)
             )
         assert torch.equal(ts.intersection_planes_stream(idx, km3, k_pad), dense)
+
+
+def test_probe_f64_ew_kernel_equals_plain_and_hardware(cuda):
+    """K11 against its plain version and against the card's f64 unit on
+    adversarial pairs."""
+    from raxtax_tpu_torch.ops import exactf64 as xf
+    from raxtax_tpu_torch.tools.probe_f64 import adversarial_pairs
+
+    a, b = adversarial_pairs(np.random.default_rng(9), 50_000)
+    halves = [
+        torch.from_numpy(x.view(np.int32)).to(cuda)
+        for x in (*xf.split64(a), *xf.split64(b))
+    ]
+    got = xf.probe_f64_ew(*halves)
+    for g, w in zip(got, xf.probe_f64_ew_plain(*halves)):
+        assert torch.equal(g, w)
+    c = np.stack([got[1].cpu().numpy(), got[0].cpu().numpy()], -1).view(np.float64)
+    d = np.stack([got[3].cpu().numpy(), got[2].cpu().numpy()], -1).view(np.float64)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    np.testing.assert_array_equal(c.reshape(-1).view(np.uint64),
+                                  (ta + tb).cpu().numpy().view(np.uint64))
+    np.testing.assert_array_equal(d.reshape(-1).view(np.uint64),
+                                  (ta + tb - tb).cpu().numpy().view(np.uint64))
+
+
+def test_probe_f64_scan_kernel_equals_plain_and_k5(cuda):
+    """K12 against its plain version and against K5 on the same values, with
+    a tip count that leaves a partial last tile."""
+    from raxtax_tpu_torch.ops import exactf64 as xf
+    from raxtax_tpu_torch.ops.exactscan import exact_cumsum
+    from raxtax_tpu_torch.tools.probe_f64 import scan_inputs
+
+    p = scan_inputs(256, 300, cuda, seed=10)
+    ph, pl = xf.to_lane_groups(p)
+    oh, ol = xf.probe_f64_scan(ph, pl)
+    w_h, w_l = xf.probe_f64_scan_plain(ph, pl)
+    assert torch.equal(oh, w_h) and torch.equal(ol, w_l)
+    got = xf.from_lane_groups(oh, ol)
+    want = exact_cumsum(p)[:, 1:].contiguous()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def test_probe_op_chain_kernel_equals_plain(cuda):
+    """K13: every chain's bits against the plain version."""
+    from raxtax_tpu_torch.ops.opchain import (
+        CHAINS,
+        probe_op_chain,
+        probe_op_chain_plain,
+        probe_state,
+    )
+
+    x, y = probe_state(cuda)
+    for name in CHAINS:
+        for iters in (0, 1, 37):
+            assert torch.equal(
+                probe_op_chain(name, x, y, iters),
+                probe_op_chain_plain(name, x, y, iters),
+            ), (name, iters)

@@ -24,8 +24,17 @@ def test_import_pulls_no_jax():
         "import raxtax_tpu_torch.ops.histogram\n"
         "import raxtax_tpu_torch.tools.compare_modes\n"
         "import raxtax_tpu_torch.tools.profile_path\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'jaxlib' or m == 'raxtax_tpu' or m.startswith('raxtax_tpu.')]\n"
+        "import raxtax_tpu_torch.ops.exactf64, raxtax_tpu_torch.ops.opchain\n"
+        "import raxtax_tpu_torch.tools.probe_f64, raxtax_tpu_torch.tools.probe_ops\n"
+        "import raxtax_tpu_torch.tools.fuzzworld\n"
+        "import raxtax_tpu_torch.tools.fuzz_hardware\n"
+        "import raxtax_tpu_torch.tools.sweep_common\n"
+        "import raxtax_tpu_torch.tools.make_synth_fasta\n"
+        "import raxtax_tpu_torch.tools.runtime_memory\n"
+        "import raxtax_tpu_torch.tools.profile_stages\n"
+        "import raxtax_tpu_torch.tools.diag_engine\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'jaxlib', 'raxtax_tpu', 'tests', 'bench', 'psutil')]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -49,10 +58,11 @@ def _site_imports_jax() -> bool:
 
 
 def test_sources_name_the_jax_package_only_in_prose():
-    """No import of ``jax`` or of the JAX package anywhere in the port or in
-    chip_smoke.py."""
+    """No import of ``jax``, of the JAX package, of the repository's tests or
+    benchmark, or of ``psutil`` anywhere in the port or in chip_smoke.py."""
     pat = re.compile(
-        r"^\s*(from|import)\s+(jax|jaxlib|raxtax_tpu)(\.|\s|$)", re.M
+        r"^\s*(from|import)\s+(jax|jaxlib|raxtax_tpu|tests|bench|psutil)"
+        r"(\.|\s|$)", re.M
     )
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
@@ -101,9 +111,11 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     import torch
 
     from raxtax_tpu_torch.ops import (
+        exactf64,
         exactscan,
         intersect_fold,
         intersect_stream,
+        opchain,
         planes,
     )
 
@@ -124,6 +136,9 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(intersect_stream, "fold_planes_stream_plain", boom)
     monkeypatch.setattr(planes, "planes_high_counts_plain", boom)
     monkeypatch.setattr(planes, "dd_cumsum_plain", boom)
+    monkeypatch.setattr(exactf64, "probe_f64_ew_plain", boom)
+    monkeypatch.setattr(exactf64, "probe_f64_scan_plain", boom)
+    monkeypatch.setattr(opchain, "probe_op_chain_plain", boom)
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a GPU")
     p = torch.zeros((2, 8), dtype=torch.float64).as_subclass(FakeCuda)
@@ -160,16 +175,39 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
     ptr = torch.zeros(1, dtype=torch.int32).as_subclass(FakeCuda)
     with pytest.raises((RuntimeError, ValueError, TypeError)):
         intersect_stream.fold_planes_stream(flat, flat, ptr, ptr, km, 2, 2, 6)
+    w = torch.zeros((8, 128), dtype=torch.int32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        exactf64.probe_f64_ew(w, w, w, w)
+    g = torch.zeros((1, 4, 128), dtype=torch.int32).as_subclass(FakeCuda)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        exactf64.probe_f64_scan(g, g)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        opchain.probe_op_chain("u32_add_x1", w, w, 4)
 
 
-def test_the_new_kernel_sources_are_listed_for_the_build():
-    """Every ``csrc/*.cu`` is a build target, and the two folds of this
-    slice name the C entry points their sources export."""
+def test_the_new_kernel_sources_are_listed_for_the_build(tmp_path, monkeypatch):
+    """Every ``csrc/*.cu`` is a build target, the wrappers name the C entry
+    points their sources export, and every shared header goes into every
+    library's name, so an edited header never leaves a stale build."""
     from raxtax_tpu_torch.ops import _build
 
     stems = {p.stem for p in (PKG / "csrc").glob("*.cu")}
-    assert stems == set(_build.KERNEL_SOURCES) and len(stems) == 9
-    assert "rx_fold_rows" in (PKG / "csrc" / "fold_rows.cu").read_text()
-    assert "rx_fold_stream" in (PKG / "csrc" / "fold_stream.cu").read_text()
-    assert '"rx_fold_rows"' in (PKG / "ops" / "intersect_fold.py").read_text()
-    assert '"rx_fold_stream"' in (PKG / "ops" / "intersect_stream.py").read_text()
+    assert stems == set(_build.KERNEL_SOURCES) and len(stems) == 11
+    for entry, src, wrapper in (
+        ("rx_fold_rows", "fold_rows.cu", "intersect_fold.py"),
+        ("rx_fold_stream", "fold_stream.cu", "intersect_stream.py"),
+        ("rx_probe_f64_ew", "probe_f64.cu", "exactf64.py"),
+        ("rx_probe_f64_scan", "probe_f64.cu", "exactf64.py"),
+        ("rx_probe_op_chain", "probe_ops.cu", "opchain.py"),
+    ):
+        assert entry in (PKG / "csrc" / src).read_text()
+        assert f'"{entry}"' in (PKG / "ops" / wrapper).read_text()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in (PKG / "csrc").iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {s: _build._lib_path(s) for s in _build.KERNEL_SOURCES}
+    (csrc / "exactf64.cuh").write_text((csrc / "exactf64.cuh").read_text() + "\n")
+    after = {s: _build._lib_path(s) for s in _build.KERNEL_SOURCES}
+    assert all(before[s] != after[s] for s in before)
