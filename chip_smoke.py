@@ -71,10 +71,13 @@ T_START = time.time()
 BUDGET_S = 900.0
 
 #: published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS = 33.5e12  # int32 issues on half the f32 lanes (67 TFLOP/s / 2)
-PEAK_F64_ADDS = 16.75e12  # 33.5 TFLOP/s f64 counts an FMA as two operations
-PEAK_F32_ADDS = 33.5e12  # 67 TFLOP/s f32 counts an FMA as two operations
+from raxtax_tpu_torch.tools.kernel_batch import (  # noqa: E402
+    PEAK_BYTES_PER_S,
+    PEAK_F32_ADDS,
+    PEAK_F64_ADDS,
+    PEAK_INT32_OPS,
+    batch_inputs,
+)
 
 N_QUERIES = 2048
 BATCH = 256
@@ -316,23 +319,6 @@ def phase_path_65k(db, queries, build_s: float) -> dict:
     }
 
 
-def batch_inputs(queries):
-    """Host arrays of one batch of B = 256 queries: ``(kmer_idx, ks, k_pad,
-    s_max, flat_k, off_k)``."""
-    from raxtax_tpu_torch import native
-    from raxtax_tpu_torch.ops.intersect_fold import PAD_ROW
-
-    seqs = [s for _, s in queries[:BATCH]]
-    flat_k, off_k = native.distinct_kmers_flat(seqs)
-    ks = np.diff(off_k[: BATCH + 1]).astype(np.int32)
-    k_pad = -(-int(ks.max()) // 128) * 128
-    s_max = -(-(int(ks.max()) + 1) // 128) * 128
-    kmer_idx = np.full((BATCH, k_pad), PAD_ROW, np.int32)
-    mask = np.arange(k_pad)[None, :] < ks[:, None]
-    kmer_idx[mask] = flat_k[: off_k[BATCH]]
-    return kmer_idx, ks, k_pad, s_max, flat_k, off_k
-
-
 def fold_compare(state, queries, with_plain: bool) -> dict:
     """K2 against K1 on the same batch (bit for bit) and, with
     ``with_plain``, against its plain version; both kernels' times. The
@@ -345,7 +331,7 @@ def fold_compare(state, queries, with_plain: bool) -> dict:
     from raxtax_tpu_torch.ops import intersect_fold as fo
 
     dev = state.device
-    kmer_idx, ks, k_pad, _, _, _ = batch_inputs(queries)
+    kmer_idx, ks, k_pad, _, _, _ = batch_inputs(queries, BATCH)
     km3 = state.kmer_major3
     S = int(km3.shape[1])
     pair_kmer, pair_blk, max_pairs, totals = fo.build_pairs(
@@ -415,7 +401,7 @@ def batch_probs32(db, queries, state) -> torch.Tensor:
     from raxtax_tpu_torch.ops import intersect_fold, planes as pl
     from raxtax_tpu_torch.tools.profile_stages import host_tables
 
-    kmer_idx, ks, k_pad, s_max, _, _ = batch_inputs(queries)
+    kmer_idx, ks, k_pad, s_max, _, _ = batch_inputs(queries, BATCH)
     d_idx = torch.from_numpy(kmer_idx).to(state.device)
     d_ks = torch.from_numpy(ks).to(state.device)
     planes = intersect_fold.fold_planes(
@@ -792,10 +778,15 @@ def phase_kernels(db, queries, state) -> list[dict]:
     bit patterns), with times and bounds. ``state`` carries the block CSR of
     the sparse fold."""
     from raxtax_tpu_torch.ops import exactscan, intersect_fold, planes as pl
+    from raxtax_tpu_torch.tools.kernel_batch import (
+        dadd_latency,
+        exact_cumsum_bounds,
+        fold_planes_bounds,
+    )
     from raxtax_tpu_torch.tools.profile_stages import host_tables
 
     dev = state.device
-    kmer_idx, ks, k_pad, s_max, flat_k, off_k = batch_inputs(queries)
+    kmer_idx, ks, k_pad, s_max, flat_k, off_k = batch_inputs(queries, BATCH)
     d_idx = torch.from_numpy(kmer_idx).to(dev)
     d_ks = torch.from_numpy(ks).to(dev)
     km3 = state.kmer_major3
@@ -817,27 +808,24 @@ def phase_kernels(db, queries, state) -> list[dict]:
     del plain
     ms = cuda_ms(lambda: intersect_fold.fold_planes(
         d_idx, d_ks, km3, max_count=k_pad))
-    uniq_rows = int(np.unique(flat_k[: off_k[BATCH]]).size)
-    total_rows = int(ks.sum())
-    out_bytes = BATCH * P * W * 4
-    bytes_once = uniq_rows * W * 4 + kmer_idx.nbytes + ks.nbytes + out_bytes
-    t_bytes = bytes_once / PEAK_BYTES_PER_S
-    t_ops = total_rows * W * 6 / PEAK_INT32_OPS
+    # bound_ms reads each unique row once; stream_bound_ms streams every
+    # (query, k-mer) row, no reuse between queries
+    fb = fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W, P)
     out.append({
         "name": "fold_planes", "route": "cuda",
         "source": "raxtax_tpu_torch/csrc/fold_planes.cu",
         "replaces": "raxtax_tpu/ops/intersect_pallas.py:144",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
         "library_ms": None,
         "shape": {"B": BATCH, "k_pad": k_pad, "W": W, "P": P},
-        "rows_folded": total_rows, "unique_rows": uniq_rows,
-        # every (query, k-mer) row streamed from memory, no reuse between
-        # queries: what the kernel's access pattern asks of the card
-        "stream_bound_ms": (total_rows * W * 4 + out_bytes)
-        / PEAK_BYTES_PER_S * 1e3,
+        "rows_folded": fb["rows_folded"], "unique_rows": fb["unique_rows"],
+        "stream_bound_ms": fb["stream_bound_ms"],
     })
+    # the achieved rate against both bounds: the share of the time that
+    # reading each unique row once, or every row streamed, would take
+    out[-1]["bound_share"] = out[-1]["bound_ms"] / ms
+    out[-1]["stream_bound_share"] = out[-1]["stream_bound_ms"] / ms
 
     # K9, K10 (appended behind K8 so the first eight keep their order) -------
     variants = fold_variants(
@@ -934,27 +922,40 @@ def phase_kernels(db, queries, state) -> list[dict]:
         want = np.concatenate(([0.0], np.cumsum(host_p[r])))
         if not np.array_equal(want.view(np.uint64), host_c[r].view(np.uint64)):
             raise AssertionError("exact_cumsum differs from np.cumsum")
+    # ragged shapes: one chain alone, and 133 chains (a CTA with one chain
+    # left over) over a tip count that wraps the tile ring and ends in a
+    # partial tile
+    rng = np.random.default_rng(5)
+    ragged = [(1, 1), (BATCH // 2 + 5, 6 * 1024 + 7)]
+    for b_, n_ in ragged:
+        x = torch.from_numpy(rng.random((b_, n_)) * 1e-3).to(dev)
+        if not bits_equal(exactscan.exact_cumsum(x),
+                          exactscan.exact_cumsum_plain(x)):
+            raise AssertionError(f"exact_cumsum differs at {b_} x {n_}")
     ms = cuda_ms(lambda: exactscan.exact_cumsum(p))
     lib_ms = cuda_ms(lambda: torch.cumsum(p, dim=1))
     lib = torch.cumsum(p, dim=1)
     lib_same = bits_equal(lib, cum[:, 1:].contiguous())
     del lib
-    t_bytes = (BATCH * N * 8 + BATCH * (N + 1) * 8) / PEAK_BYTES_PER_S
-    t_ops = BATCH * N / PEAK_F64_ADDS
+    lat = dadd_latency(dev)
     out.append({
         "name": "exact_cumsum", "route": "cuda",
         "source": "raxtax_tpu_torch/csrc/exact_cumsum.cu",
         "replaces": "raxtax_tpu/ops/exactscan.py:46",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **exact_cumsum_bounds(BATCH, N),
         "library_ms": lib_ms,
         "library": "torch.cumsum (a parallel scan: a yardstick, not a "
                    "substitute)",
         "library_bits_equal": lib_same,
         "np_cumsum_rows_checked": len(rows),
         "shape": {"B": BATCH, "N": N},
+        "ragged_shapes_checked": ragged,
         "chain_adds": N, "ns_per_chain_step": ms * 1e6 / N,
+        # the dependent adds one chain must make, one after the other, at
+        # the latency this run measured: the floor of a kernel that keeps
+        # the reference's order of adds
+        **lat, "chain_floor_ms": N * lat["dadd_latency_ns"] * 1e-6,
     })
     # K2 ------------------------------------------------------------------
     f = fold_compare(state, queries, with_plain=True)

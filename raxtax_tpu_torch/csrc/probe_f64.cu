@@ -10,14 +10,15 @@
 // K12 rx_probe_f64_scan replaces make_scan/scan_kernel
 // (probe_mosaic_f64.py:80-113, pallas_call at :125): a sequential prefix sum
 // per lane over tips, cum[g, t, l] = RN(cum[g, t-1, l] + p[g, t, l]), in the
-// layout [G, N, 128] of u32 halves (queries = G lane groups of 128). As in
-// K5 (exact_cumsum.cu) one thread walks one chain and carries the running
-// sum in registers; a CTA is one warp of 32 lanes of one group and stages a
-// tile of SCAN_TILE tips of its lanes in shared memory (each tip is one
-// 128-byte coalesced load per half), then walks the tile. Stores of the
-// running sum go straight out, coalesced along lanes. Bound: only B chains
-// exist, so the latency of the dependent software adds times N limits it,
-// not the 16 bytes per (tip, query) it moves.
+// layout [G, N, 128] of u32 halves (queries = G lane groups of 128). Every
+// lane of a warp walks its own chain and carries the running sum in
+// registers; a CTA is one warp of 32 lanes of one group (8 CTAs at B = 256).
+// Each lane loads its column of a tile of SCAN_TILE tips into shared memory
+// (each tip is one 128-byte coalesced load per half) and then walks the
+// tile, so a tile's loads wait before its first add; stores of the running
+// sum go straight out, coalesced along lanes. Bound: only B chains exist, so
+// the latency of the dependent software adds times N limits it, not the 16
+// bytes per (tip, query) it moves.
 #include "exactf64.cuh"
 #include "rx_common.cuh"
 

@@ -58,42 +58,51 @@ def find_nvcc() -> str:
     )
 
 
-def _lib_path(stem: str) -> Path:
+def _lib_path(stem: str, csrc: Path | None = None,
+              out: Path | None = None) -> Path:
+    """The library ``csrc/<stem>.cu`` builds into under ``out`` (by default
+    the package's sources and build directory)."""
+    csrc, out = csrc or CSRC, out or BUILD_DIR
     # every shared header goes into every library's name: a source may
     # include any of them, and an edited header must not leave a stale build
     h = hashlib.sha1()
-    for src in (CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))):
+    for src in (csrc / f"{stem}.cu", *sorted(csrc.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:12]}.so"
+    return out / f"lib{stem}_{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> float:
-    """Compile every kernel source that has no current library, all in
-    parallel. Returns the wall seconds spent (0.0 when nothing was built)."""
-    todo = [s for s in KERNEL_SOURCES if not _lib_path(s).is_file()]
+def build_all(stems=KERNEL_SOURCES, csrc: Path | None = None,
+              out: Path | None = None) -> float:
+    """Compile every source of ``stems`` under ``csrc`` that has no current
+    library under ``out`` (by default the package's sources and build
+    directory), all in parallel; nvcc's report goes to
+    ``out/<stem>.nvcc.log``. Returns the wall seconds spent (0.0 when
+    nothing was built)."""
+    csrc, out = csrc or CSRC, out or BUILD_DIR
+    todo = [s for s in stems if not _lib_path(s, csrc, out).is_file()]
     if not todo:
         return 0.0
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     procs = []
     for stem in todo:
-        lib = _lib_path(stem)
+        lib = _lib_path(stem, csrc, out)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{stem}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp),
+               str(csrc / f"{stem}.cu")]
         procs.append((stem, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     failed = []
     for stem, lib, tmp, proc in procs:
-        out, _ = proc.communicate()
+        log, _ = proc.communicate()
         # registers / shared memory / spills per kernel, for later reading
-        (BUILD_DIR / f"{stem}.nvcc.log").write_text(out or "")
+        (out / f"{stem}.nvcc.log").write_text(log or "")
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"--- {stem}.cu (exit {proc.returncode}) ---\n{out}")
+            failed.append(f"--- {stem}.cu (exit {proc.returncode}) ---\n{log}")
         else:
             os.replace(tmp, lib)
     if failed:

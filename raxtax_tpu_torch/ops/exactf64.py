@@ -26,9 +26,10 @@ The probes (CUDA kernels ``csrc/probe_f64.cu`` on ``csrc/exactf64.cuh``):
   operations per pair) rather than by its 32 bytes.
 - :func:`probe_f64_scan` — K12, replaces ``make_scan``/``scan_kernel``
   (``probe_mosaic_f64.py:80-113``, :125): the sequential software-f64 prefix
-  sum per lane over tips, ``[G, N, 128]`` u32 halves. One thread walks one
-  chain through shared-memory tiles, as K5 does; bound by the latency of N
-  dependent software adds, with only ``G * 128`` chains.
+  sum per lane over tips, ``[G, N, 128]`` u32 halves. Each lane of a
+  one-warp CTA walks one chain through shared-memory tiles of its own
+  column; bound by the latency of N dependent software adds, with only
+  ``G * 128`` chains.
 
 Both wrappers launch the kernel for CUDA tensors (``int32`` bit patterns) or
 raise; a CPU tensor takes the plain version.

@@ -12,11 +12,15 @@ on ``float64`` tensors directly.
   (``rx_exact_cumsum``). Replaces the TPU kernel ``_scan_kernel``
   (``ops/exactscan.py`` of the JAX package: ``exact_cumsum_pairs`` followed
   by ``cum_pairs_bn``), which adds u32 halves with software IEEE arithmetic.
-  One thread walks one query's chain through shared-memory tiles. Bound:
-  only ``B`` chains exist, so the dependent-add latency times ``N`` limits
-  it, not the ``2 * B * N * 8`` bytes it moves. ``torch.cumsum`` is a
+  One lane of a walker warp carries one query's chain in a register, two
+  chains per CTA, while copy warps stream tiles through a shared-memory ring
+  with ``cp.async``. Bound: only ``B`` chains exist, so the dependent-add
+  latency times ``N`` limits it, not the ``2 * B * N * 8`` bytes it moves. ``torch.cumsum`` is a
   parallel scan on CUDA (another rounding) and is NOT its plain version: the
   plain version is an explicit ordered loop over tips.
+- :func:`dadd_chain` — one GPU thread's chain of dependent f64 adds
+  (``rx_dadd_chain``, same source): the latency of one add, which times
+  ``N`` is K5's floor, measured on the card at hand.
 - :func:`node_conf_exact`, :func:`significant_nodes_exact`,
   :func:`max_descent_exact` — plain PyTorch in f64.
 """
@@ -44,6 +48,12 @@ def exact_cumsum_plain(p: torch.Tensor) -> torch.Tensor:
     return out.t().contiguous()
 
 
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_void_p,
+]
+
+
 def exact_cumsum(p: torch.Tensor) -> torch.Tensor:
     """Zero-prefixed inclusive sequential-f64 prefix sum along tips:
     ``[B, N] float64 -> [B, N+1]`` with ``cum[b, t]`` the sum of tips
@@ -54,11 +64,7 @@ def exact_cumsum(p: torch.Tensor) -> torch.Tensor:
         return exact_cumsum_plain(p)
     _build.require_cuda_tensor(p, torch.float64, "p")
     B, N = p.shape
-    fn = _build.entry(
-        "exact_cumsum", "rx_exact_cumsum",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-         ctypes.c_void_p],
-    )
+    fn = _build.entry("exact_cumsum", "rx_exact_cumsum", _ARGTYPES)
     out = torch.empty((B, N + 1), dtype=torch.float64, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -70,6 +76,39 @@ def exact_cumsum(p: torch.Tensor) -> torch.Tensor:
 
 #: kernel launches made by :func:`exact_cumsum`
 exact_cumsum.launches = 0
+
+
+def dadd_chain_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """Plain version of :func:`dadd_chain`: the same sum by a host loop
+    (Python floats are IEEE f64 rounded to nearest); no cycles (NaN)."""
+    xs = [float(v) for v in x.cpu()]
+    acc = 0.0
+    for i in range(steps):
+        acc += xs[i % 8]
+    return torch.tensor([acc, float("nan")], dtype=torch.float64)
+
+
+def dadd_chain(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """K5's chain floor, measured: ``steps`` (a multiple of 32) dependent f64
+    adds of the eight addends ``x[i % 8]`` in one GPU thread, with no memory
+    traffic (``rx_dadd_chain`` in ``csrc/exact_cumsum.cu``). Returns ``[sum,
+    SM cycles of the loop]`` as float64. A CPU tensor takes the plain
+    version. Not on any classify path: it times what K5's walker cannot beat."""
+    if x.shape != (8,) or x.dtype != torch.float64:
+        raise TypeError("dadd_chain expects an [8] float64 tensor")
+    if not x.is_cuda:
+        return dadd_chain_plain(x, steps)
+    _build.require_cuda_tensor(x, torch.float64, "x")
+    fn = _build.entry(
+        "exact_cumsum", "rx_dadd_chain",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    )
+    out = torch.empty(2, dtype=torch.float64, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), out.data_ptr(), steps, stream)
+    _build.check("exact_cumsum", code, "dadd_chain")
+    return out
 
 
 def node_conf_exact(cum: torch.Tensor, s: torch.Tensor, e: torch.Tensor):

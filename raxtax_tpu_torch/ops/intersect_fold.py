@@ -10,10 +10,14 @@ built.
 CUDA kernel: ``csrc/fold_planes.cu`` (``rx_fold_planes``). It replaces the
 TPU kernel ``_hs_kernel_fused`` of the JAX package
 (``ops/intersect_pallas.py``: ``_hs_planes_fused``). Bound on the GPU:
-bytes — ``B * K * W`` postings words are read, about six logic ops each. One
-thread keeps all ``P`` planes of four adjacent words in registers and folds
-16 rows per step with the Harley-Seal carry-save tree, so every output word
-is written once and no accumulator lives in memory.
+bytes — every postings row the batch names read once from device memory,
+about six logic ops per word. One thread keeps all ``P`` planes of four
+adjacent words in registers and folds 16 rows per step with the Harley-Seal
+carry-save tree, so every output word is written once and no accumulator
+lives in memory. A CTA owns a 512-byte column slice of one query and the
+query varies fastest over the grid, so the queries of a slice run together
+and share its rows through L2; each thread stages its rows with ``cp.async``
+in a shared-memory ring.
 
 K2, the block-sparse fold (:func:`fold_planes_sparse`), CUDA kernel
 ``csrc/fold_sparse.cu`` (``rx_fold_planes_sparse``), replaces the TPU kernel

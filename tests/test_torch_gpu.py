@@ -26,23 +26,49 @@ def _planes(rng, B, P, S):
     )
 
 
-def test_fold_kernel_equals_plain(cuda):
-    from raxtax_tpu_torch.ops.intersect_fold import fold_planes, fold_planes_plain
+@pytest.mark.parametrize(
+    "n_lanes,sorted_ids,k_pad,cut",
+    # through the wrapper a row is 32 * n_lanes uint4, always whole 32-column
+    # slices; cut > 0 calls the C entry on rows cut uint4 short, so the last
+    # slice is partly past the row's end. Ids in any order; more ids than one
+    # shared-memory chunk of 1024
+    [(2, True, 128, 0), (5, False, 128, 0), (9, True, 1100, 0),
+     (9, False, 1100, 0), (4, False, 128, 25), (3, True, 1100, 1)],
+)
+def test_fold_kernel_equals_plain(cuda, n_lanes, sorted_ids, k_pad, cut):
+    from raxtax_tpu_torch.ops import _build
+    from raxtax_tpu_torch.ops import intersect_fold as tf
 
     rng = np.random.default_rng(0)
     km = torch.from_numpy(
-        rng.integers(0, 2**32, size=(65537, 2, 128), dtype=np.uint64)
+        rng.integers(0, 2**32, size=(65537, n_lanes, 128), dtype=np.uint64)
         .astype(np.uint32).view(np.int32)
     )
     km[65536] = 0
-    kc = np.array([0, 5, 16, 17, 100, 128], np.int32)
-    idx = np.full((6, 128), 65536, np.int32)
+    kc = np.array([0, 5, 16, 17, 100, k_pad], np.int32)
+    if k_pad > 1024:
+        kc[4] = 1024 + 37
+    idx = np.full((6, k_pad), 65536, np.int32)
     for b, k in enumerate(kc):
-        idx[b, :k] = np.sort(rng.choice(65536, k, replace=False))
+        ids = rng.choice(65536, k, replace=False)
+        idx[b, :k] = np.sort(ids) if sorted_ids else ids
     args = [torch.from_numpy(idx).to(cuda), torch.from_numpy(kc).to(cuda), km.to(cuda)]
-    got = fold_planes(*args)
-    want = fold_planes_plain(*args, got.shape[1] - 4)
-    assert torch.equal(got, want)
+    n_high = tf.n_high_for(k_pad)
+    want = tf.fold_planes_plain(*args, n_high)
+    if not cut:
+        assert torch.equal(tf.fold_planes(*args), want)
+        return
+    # the fold is column by column: a short row's planes are the first
+    # words of the full row's
+    W = (32 * n_lanes - cut) * 4
+    rows = args[2].reshape(65537, -1)[:, :W].contiguous()
+    got = torch.empty((6, 4 + n_high, W), dtype=torch.int32, device=cuda)
+    fn = _build.entry("fold_planes", "rx_fold_planes", tf._ARGTYPES)
+    code = fn(args[0].data_ptr(), args[1].data_ptr(), rows.data_ptr(),
+              got.data_ptr(), 6, k_pad, W, n_high,
+              torch.cuda.current_stream().cuda_stream)
+    _build.check("fold_planes", code, "fold_planes")
+    assert torch.equal(got, want.reshape(6, 4 + n_high, -1)[:, :, :W])
 
 
 def test_hist_and_probs_kernels_equal_plain(cuda):
@@ -63,16 +89,54 @@ def test_hist_and_probs_kernels_equal_plain(cuda):
             assert torch.equal(a, b)
 
 
-def test_cumsum_kernel_equals_plain_and_numpy(cuda):
+def _scan_tile() -> int:
+    import re
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parent.parent / "raxtax_tpu_torch/csrc/exact_cumsum.cu"
+    return int(re.search(r"SCAN_TILE = (\d+);", src.read_text()).group(1))
+
+
+@pytest.mark.parametrize("b", [1, 3, 11, 133])
+@pytest.mark.parametrize(
+    "tiles,extra",
+    # N = tiles * SCAN_TILE + extra: nothing, one tip, a tile but one, a tile
+    # and one, and two lengths past the ring of four slots, the longer one
+    # wrapping it and ending in a partial tile
+    [(0, 0), (0, 1), (1, -1), (1, 1), (3, 5), (6, 7)],
+)
+def test_cumsum_kernel_equals_plain_and_numpy(cuda, b, tiles, extra):
+    """K5 bit for bit at ragged shapes (the tile size is read from the
+    source; a CTA walks two chains), with a row of zeros and subnormal
+    addends."""
     from raxtax_tpu_torch.ops.exactscan import exact_cumsum, exact_cumsum_plain
 
-    rng = np.random.default_rng(2)
-    p = rng.random((11, 1000)) * 10.0 ** rng.integers(-12, 0, (11, 1000))
+    n = tiles * _scan_tile() + extra
+    rng = np.random.default_rng(2 + b * 10_000 + n)
+    p = rng.random((b, n)) * 10.0 ** rng.integers(-12, 0, (b, n))
+    if b > 1:
+        p[1] = 0.0
+    p[0, ::5] = 5e-324 * rng.integers(1, 1000, size=p[0, ::5].shape)
     d = torch.from_numpy(p).to(cuda)
     got = exact_cumsum(d)
+    assert got.shape == (b, n + 1)
     assert torch.equal(got.view(torch.int64), exact_cumsum_plain(d).view(torch.int64))
-    want = np.concatenate([np.zeros((11, 1)), np.cumsum(p, axis=1)], axis=1)
+    want = np.concatenate([np.zeros((b, 1)), np.cumsum(p, axis=1)], axis=1)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), want.view(np.uint64))
+
+
+def test_dadd_chain_equals_host_loop(cuda):
+    """The chain that measures K5's floor adds what a host loop adds, and
+    counts cycles."""
+    from raxtax_tpu_torch.ops.exactscan import dadd_chain, dadd_chain_plain
+    from raxtax_tpu_torch.tools.kernel_batch import CHAIN_ADDENDS
+
+    x = torch.tensor(CHAIN_ADDENDS, dtype=torch.float64)
+    got = dadd_chain(x.to(cuda), 4096).cpu()
+    assert got[0].view(torch.int64) == dadd_chain_plain(x, 4096)[0].view(torch.int64)
+    assert got[1] >= 4096
+    with pytest.raises(RuntimeError):
+        dadd_chain(x.to(cuda), 33)
 
 
 def test_sparse_fold_kernel_equals_plain_and_dense(cuda):

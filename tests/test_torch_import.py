@@ -33,6 +33,7 @@ def test_import_pulls_no_jax():
         "import raxtax_tpu_torch.tools.runtime_memory\n"
         "import raxtax_tpu_torch.tools.profile_stages\n"
         "import raxtax_tpu_torch.tools.diag_engine\n"
+        "import raxtax_tpu_torch.tools.kernel_ab, raxtax_tpu_torch.tools.kernel_batch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'raxtax_tpu', 'tests', 'bench', 'psutil')]\n"
         "print('BAD', bad)\n"
