@@ -73,10 +73,12 @@ BUDGET_S = 900.0
 #: published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
 from raxtax_tpu_torch.tools.kernel_batch import (  # noqa: E402
     PEAK_BYTES_PER_S,
-    PEAK_F32_ADDS,
     PEAK_F64_ADDS,
     PEAK_INT32_OPS,
     batch_inputs,
+    batch_probs32,
+    dd_cumsum_bounds,
+    fold_stream_bounds,
 )
 
 N_QUERIES = 2048
@@ -395,11 +397,10 @@ def fold_compare(state, queries, with_plain: bool) -> dict:
     }
 
 
-def batch_probs32(db, queries, state) -> torch.Tensor:
+def world_probs32(db, queries, state) -> torch.Tensor:
     """``[B, 32, S, 128]`` f32 bit-major tip probabilities of one batch on
     ``state``'s database: what the double-f32 path hands its scan."""
     from raxtax_tpu_torch.ops import intersect_fold, planes as pl
-    from raxtax_tpu_torch.tools.profile_stages import host_tables
 
     kmer_idx, ks, k_pad, s_max, _, _ = batch_inputs(queries, BATCH)
     d_idx = torch.from_numpy(kmer_idx).to(state.device)
@@ -407,8 +408,7 @@ def batch_probs32(db, queries, state) -> torch.Tensor:
     planes = intersect_fold.fold_planes(
         d_idx, d_ks, state.kmer_major3, max_count=k_pad)
     hist = pl.planes_histogram(planes, s_max, db.num_tips)
-    d_tab = torch.from_numpy(host_tables(hist, ks, s_max)).to(state.device)
-    return pl.planes_probs(planes, d_tab.float())
+    return batch_probs32(planes, hist, ks, s_max)
 
 
 def scan_compare(name: str, probs32: torch.Tensor, packed: bool) -> dict:
@@ -465,19 +465,16 @@ def scan_compare(name: str, probs32: torch.Tensor, packed: bool) -> dict:
     lib_ms = cuda_ms(lambda: torch.cumsum(flat64, dim=1))
     del flat64
     ms = cuda_ms(fn)
-    # 4 bytes read and 8 written per tip, and the zero column; one
-    # compensated add is 8 f32 operations: 7 lane steps plus the offset and
-    # the carry per tip
-    t_bytes = (B * N * 12 + B * 8) / PEAK_BYTES_PER_S
-    t_ops = B * N * 9 * 8 / PEAK_F32_ADDS
+    db = dd_cumsum_bounds(B, N)
     n_rows = N // 128
     return {
         "name": name, "route": "cuda",
         "source": "raxtax_tpu_torch/csrc/dd_cumsum.cu",
         "replaces": replaces,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": db["bound_ms"], "bound_by": db["bound_by"],
+        "bound_share": db["bound_ms"] / ms,
+        "reload_bound_ms": db["reload_bound_ms"],
         "library_ms": lib_ms,
         "library": "torch.cumsum in f64 (another add order: a yardstick, "
                    "not a substitute)",
@@ -542,7 +539,7 @@ def phase_path_65k_dd(db, queries):
     line["bm_scan"] = {"queries": len(short), "checked": 8, "launches": counts}
     # K7 against its plain version at the shape this run gave it
     k7 = scan_compare(
-        "dd_cumsum_bitmajor", batch_probs32(packed, short, clf.state), packed=True
+        "dd_cumsum_bitmajor", world_probs32(packed, short, clf.state), packed=True
     )
     del packed, clf
 
@@ -732,42 +729,37 @@ def fold_variants(state, queries, k1_planes, inputs) -> list[dict]:
     del plain, got
     ms = cuda_ms(lambda: st.fold_planes_stream(*pairs, km3, BATCH, group, P))
     sort_ms = cuda_ms(lambda: st.build_pairs(d_idx, group))
-    # the same batch with fewer and with more queries per CTA: the walk of a
-    # group's pairs is serial, so the time grows with the group, while a
-    # smaller group re-reads more rows from L2
+    # the same batch at every group size the kernel takes: a larger group
+    # shares more row loads and keeps more planes in registers
     by_group = {}
-    for g in sorted({1, 2, group, 2 * group, 4 * group}):
+    for g in range(1, st.MAX_GROUP + 1):
         alt = st.build_pairs(d_idx, g)
-        if not bits_equal(st.fold_planes_stream(*alt, km3, BATCH, g, P), k1_planes):
-            raise AssertionError(f"fold_planes_stream, groups of {g}: wrong planes")
+        if not bits_equal(st.fold_planes_stream(*alt, km3, BATCH, g, P),
+                          k1_planes):
+            raise AssertionError(f"fold_planes_stream, groups of {g}: wrong")
         by_group[g] = cuda_ms(
             lambda: st.fold_planes_stream(*alt, km3, BATCH, g, P))
-    uniq_rows = int(np.unique(flat_k[: off_k[BATCH]]).size)
-    n_pairs = int(ks.sum())
-    out_bytes = BATCH * P * W * 4
-    small = 2 * pairs[0].numel() * 4 + 2 * pairs[2].numel() * 4
-    t_bytes = (uniq_rows * W * 4 + out_bytes + small) / PEAK_BYTES_PER_S
-    # a pair ripples only where its row word is set; the zero test alone is
-    # one operation per word and pair
-    t_ops = n_pairs * W / PEAK_INT32_OPS
+    fb = fold_stream_bounds(kmer_idx, ks, flat_k, off_k, W, P,
+                            pairs[0].numel(), pairs[2].numel())
     out.append({
         "name": "fold_planes_stream", "route": "cuda",
         "source": "raxtax_tpu_torch/csrc/fold_stream.cu",
         "replaces": "raxtax_tpu/ops/intersect_stream.py:38",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+        "bound_share": fb["bound_ms"] / ms,
         "library_ms": None,
         "shape": {"B": BATCH, "k_pad": k_pad, "W": W, "P": P,
-                  "pairs": n_pairs, "group_size": group,
-                  "ctas": [-(-W // st.TILE), -(-BATCH // group)]},
+                  "pairs": fb["rows_folded"], "group_size": group,
+                  "slice_bytes": 512,
+                  "ctas": [-(-BATCH // group), -(-W // 128)]},
         "bits_equal_fold_planes": True,
-        "unique_rows": uniq_rows,
+        "unique_rows": fb["unique_rows"],
         "build_pairs_ms": sort_ms,  # the sort beside the kernel
         "ms_by_group_size": by_group,
-        "whole_matrix_bound_ms": (int(km3.shape[0]) * W * 4 + out_bytes)
+        "whole_matrix_bound_ms": (int(km3.shape[0]) * W * 4 + BATCH * P * W * 4)
         / PEAK_BYTES_PER_S * 1e3,
-        "stream_bound_ms": (n_pairs * W * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3,
+        "stream_bound_ms": fb["stream_bound_ms"],
     })
     return out
 
@@ -1008,7 +1000,7 @@ def phase_kernels(db, queries, state) -> list[dict]:
 
     # K6, K7 ----------------------------------------------------------------
     del p, probs
-    probs32 = pl.planes_probs(planes, d_tab.float())  # [B, 32, S, 128] f32
+    probs32 = batch_probs32(planes, hist, ks, s_max)  # [B, 32, S, 128] f32
     del planes
     out.append(scan_compare("dd_cumsum", probs32, packed=False))
     # the bit-major scan is launched only on a packed database (the

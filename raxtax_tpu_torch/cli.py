@@ -188,6 +188,30 @@ def not_ported(args) -> str | None:
     return None
 
 
+def cache_layout(backend: str, only_db: bool, bm_scan: bool,
+                 significance: str) -> tuple[str, bool, str]:
+    """``(backend, with_ref_major, kmer_layout)`` of the database a run
+    builds from FASTA: the JAX CLI's choice for one device
+    (``raxtax_tpu/cli.py:232-254``), so both packages write the same cache
+    for the same flags. A classify run's ``auto`` is ``pallas``, as the JAX
+    CLI resolves it on its accelerator; ``--only-db`` keeps ``auto``, whose
+    future consumer is unknown. Only ``auto`` and ``xla`` keep the
+    ``[N, 2048]`` ref-major matrix. The planes backends (``pallas``,
+    ``stream``) fold the flat postings layout at scale (``auto``: packed for
+    tiny databases); every other run builds ``packed``, and so does the
+    double-f32 bit-major scan, which reads only that layout."""
+    if backend == "auto" and not only_db:
+        backend = "pallas"
+    with_ref_major = backend in ("auto", "xla")
+    if bm_scan and significance != "exact":
+        layout = "packed"
+    elif backend in ("pallas", "stream"):
+        layout = "auto"
+    else:
+        layout = "packed"
+    return backend, with_ref_major, layout
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
@@ -245,17 +269,8 @@ def main(argv: list[str] | None = None) -> int:
         # Parse reference database (binary fast path via the checkpointed
         # path, src/main.rs:61)
         db_path = Path(checkpoint.db_fingerprint.path)
-        # Only the xla backend reads the [N, 2048] ref-major matrix, so a
-        # FASTA parse builds it for that backend alone (a binary DB loads
-        # whatever it contains). `--only-db` keeps it: the future consumer's
-        # backend is unknown.
-        backend = args.backend
-        want_ref_major = args.only_db or backend == "xla"
-        # flat postings at scale (the bit-major planes are then tip order),
-        # packed for tiny databases; the bit-major scan reads packed only
-        want_layout = (
-            "packed" if args.bm_scan and args.significance != "exact"
-            else "auto"
+        backend, want_ref_major, want_layout = cache_layout(
+            args.backend, args.only_db, args.bm_scan, args.significance
         )
         try:
             with phase_timer("Parsing References"):

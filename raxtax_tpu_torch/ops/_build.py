@@ -122,13 +122,13 @@ def load(stem: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(stem: str, name: str, argtypes: list):
-    """The C entry point ``name`` of ``csrc/<stem>.cu``, returning an int
-    error code, with its argument types set (once)."""
+def entry(stem: str, name: str, argtypes: list, restype=ctypes.c_int):
+    """The C entry point ``name`` of ``csrc/<stem>.cu`` (by default one
+    returning an int error code), with its argument types set (once)."""
     fn = _entries.get(name)
     if fn is None:
         fn = getattr(load(stem), name)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = argtypes
         _entries[name] = fn
     return fn

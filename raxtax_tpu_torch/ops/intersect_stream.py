@@ -4,17 +4,21 @@ Third way to build the counter planes of ``ops/intersect_fold.py``: the
 batch's (query, k-mer) slots are sorted by postings row, each row is loaded
 once per group of queries and applied to every query of the group that holds
 that k-mer, and the planes stay on chip until they are complete. Same planes
-as K1 / K2 / K9, bit for bit, in plain binary (ripple-carry) form.
+as K1 / K2 / K9, bit for bit, in plain binary form.
 
 CUDA kernel: ``csrc/fold_stream.cu`` (``rx_fold_stream``). It replaces the
 TPU kernel ``_stream_kernel`` of the JAX package
 (``ops/intersect_stream.py``: ``_stream_planes``). Bound on the GPU: bytes —
 the rows some query of the batch uses, read once, plus the planes written.
-A ripple-carry add does not compose under atomics, so one CTA owns a
-(256-column tile, query group) and keeps ``group x P x 256`` accumulator
-words in shared memory; :func:`stream_group_size` sizes the group from a
-quarter of an SM's shared memory (four queries at ten planes). Rows shared
-between groups are re-read, from L2 where the CTAs of a tile keep step.
+The planes do not compose under atomics, so one warp owns a (512-byte
+column slice, query group) and keeps each query's planes of its words in
+registers, as K1's carry-save adder tiers; the group is the fastest grid
+dimension, so the groups walking one slice keep step and a row slice they
+share comes from L2 after its first reader. The warp turns its group's
+pairs into (row, query mask) runs and stages the rows ahead with
+``cp.async``: a row is loaded once per group, and each stage of 16 runs
+goes through one adder-tree step per query of the group that holds any of
+them.
 
 What is not carried over from the TPU module: its row blocks of 256 with
 block pointers, the pair-count buckets, the row padding of the matrix and
@@ -38,14 +42,13 @@ from . import _build
 from .intersect_fold import LANE, PAD_ROW
 
 ROW_BITS = 17  #: low bits of a packed pair hold the row id (rows <= 65536)
-TILE = 256  #: columns per CTA of the kernel
-STAGE = 1024  #: pairs staged per refill in the kernel
-#: shared memory one CTA may take: four CTAs fit an SM (227 KB in all). A CTA
-#: walks its group's pairs one after the other, so the kernel's time grows
-#: with the group (measured on an H100 at 1,000,000 references, 10 planes:
-#: about 5 ms up to four queries, 10 ms at ten, 19 ms at twenty), while each
-#: halving of the group doubles what is re-read from L2
-SMEM_PER_CTA = 48 * 1024
+#: queries per group (the kernel takes 1 or 2). On an H100 at 1,000,000
+#: references (``tools/kernel_ab.py``, PERF.md) groups of two fold a batch
+#: of one family's queries, which share most rows, 16 % faster than groups
+#: of one, and a batch of unrelated queries 9 % slower; groups of four and
+#: eight folded the unrelated batch slower still
+GROUP_SIZE = 2
+MAX_GROUP = 2
 MAX_PLANES = 16
 
 
@@ -56,9 +59,9 @@ def n_planes_for(max_count: int) -> int:
 
 
 def stream_group_size(batch: int, n_planes: int) -> int:
-    """Queries whose accumulators one CTA keeps in shared memory."""
-    fit = (SMEM_PER_CTA - STAGE * 4) // (n_planes * TILE * 4)
-    return max(1, min(int(batch), fit))
+    """Queries whose planes one warp keeps in registers (``n_planes`` is
+    the engine's argument; the kernel sizes its registers from it)."""
+    return max(1, min(int(batch), GROUP_SIZE))
 
 
 def build_pairs(kmer_idx: torch.Tensor, group_size: int):
@@ -142,8 +145,8 @@ def fold_planes_stream(
 ) -> torch.Tensor:  # [B, n_planes, S, 128] int32 binary counter planes
     """K10: counter planes from the pair lists of :func:`build_pairs` (made
     with the same ``group_size``). ``n_planes`` must hold the largest count.
-    A CUDA tensor runs the kernel (or raises); a CPU tensor takes the plain
-    version."""
+    The kernel takes groups of up to ``MAX_GROUP`` queries. A CUDA tensor
+    runs the kernel (or raises); a CPU tensor takes the plain version."""
     if kmer_major3.ndim != 3 or kmer_major3.shape[2] != LANE:
         raise ValueError("kmer_major3 must be [rows, S, 128]")
     if kmer_major3.shape[0] > (1 << ROW_BITS):
@@ -167,10 +170,9 @@ def fold_planes_stream(
     for t, name in zip(tensors, ("pair_q", "pair_row", "group_lo",
                                  "group_hi", "kmer_major3")):
         _build.require_cuda_tensor(t, torch.int32, name)
-    if (group_size * n_planes * TILE + STAGE) * 4 > 227 * 1024:
+    if not 1 <= group_size <= MAX_GROUP:
         raise ValueError(
-            "fold_planes_stream: the group's accumulators do not fit the "
-            "shared memory of an SM"
+            f"fold_planes_stream: groups of 1 to {MAX_GROUP} queries"
         )
     # a pair as the kernel reads it: (query within its group, row)
     packed = ((pair_q % group_size) << ROW_BITS) | pair_row

@@ -364,15 +364,33 @@ def dd_cumsum_plain(x: torch.Tensor, tile_rows: int):
 _DD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 ]
+_DD_SCRATCH_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+#: columns in front of a scan's output row: prefix 0 sits at column 31 and
+#: tip 0's sum at column 32, so every row of sums starts on 128 bytes
+DD_OUT_PAD = 32
+
+
+def dd_scan_scratch(B: int, N: int, tile_rows: int, device) -> torch.Tensor:
+    """The kernel's scratch for one scan (ticket, chunk flags, carries and
+    the levels of the row-total tree), its head zeroed as the kernel
+    requires."""
+    fn = _build.entry("dd_cumsum", "rx_dd_cumsum_scratch_words",
+                      _DD_SCRATCH_ARGTYPES, restype=ctypes.c_longlong)
+    scratch = torch.empty(fn(B, N, tile_rows, 0), dtype=torch.int32,
+                          device=device)
+    scratch[: fn(B, N, tile_rows, 1)].zero_()
+    return scratch
 
 
 def _dd_scan(x: torch.Tensor, bitmajor: bool, counter):
     """Shared body of K6 / K7: checks, the plain version for a CPU tensor,
     the launch for a CUDA one. The outputs are ``[B, N + 1]`` with a leading
-    zero column, as the confidences' range sums read them (the kernel writes
-    at column 1, so no padded copy is made)."""
+    zero column, as the confidences' range sums read them: on the device,
+    views of ``[B, N + DD_OUT_PAD]`` buffers from column ``DD_OUT_PAD - 1``
+    (the kernel writes the sums 128-byte aligned, and no padded copy is
+    made)."""
     if x.dtype != torch.float32:
         raise TypeError("the double-f32 scan expects float32 input")
     if bitmajor:
@@ -396,19 +414,21 @@ def _dd_scan(x: torch.Tensor, bitmajor: bool, counter):
         return F.pad(hi, (1, 0)), F.pad(lo, (1, 0))
     _build.require_cuda_tensor(x, torch.float32, "probs")
     fn = _build.entry("dd_cumsum", "rx_dd_cumsum", _DD_ARGTYPES)
-    hi = torch.empty((B, N + 1), dtype=torch.float32, device=x.device)
+    hi = torch.empty((B, N + DD_OUT_PAD), dtype=torch.float32, device=x.device)
     lo = torch.empty_like(hi)
-    hi[:, 0] = 0.0
-    lo[:, 0] = 0.0
+    hi[:, DD_OUT_PAD - 1] = 0.0
+    lo[:, DD_OUT_PAD - 1] = 0.0
     with torch.cuda.device(x.device):
+        scratch = dd_scan_scratch(B, N, rows, x.device)
         stream = torch.cuda.current_stream().cuda_stream
         counter.launches += 1
         code = fn(
             x.data_ptr(), hi.data_ptr(), lo.data_ptr(), B, N, rows,
-            int(bitmajor), N + 1, 1, stream,
+            int(bitmajor), N + DD_OUT_PAD, DD_OUT_PAD, scratch.data_ptr(),
+            stream,
         )
     _build.check("dd_cumsum", code, counter.__name__)
-    return hi, lo
+    return hi[:, DD_OUT_PAD - 1 :], lo[:, DD_OUT_PAD - 1 :]
 
 
 def dd_cumsum(probs: torch.Tensor):

@@ -1,25 +1,34 @@
-"""Two designs of K1 and K5 against each other, in turns, in one process.
+"""Designs of K1, K5, K10 and K6/K7 against each other, in turns, in one
+process.
 
     python -m raxtax_tpu_torch.tools.kernel_ab --other DIR [--other DIR2 ...]
-        [--refs 1000000] [--rounds 2]
+        [--refs 1000000] [--rounds 2] [--cases fold_stream,dd_cumsum,...]
+        [--groups 1,2]
 
-``DIR`` holds other sources of ``fold_planes.cu`` and ``exact_cumsum.cu``
-(with the ``*.cuh`` headers they include), for example the csrc directory of
-an earlier commit unpacked with ``git archive``. Each design is built by
-``ops/_build.build_all`` into a directory of its own under the package's
-build directory, with the package's ``nvcc`` flags, and bound by the same C
-entry points and argument types as the package's kernels. The inputs are
-those of ``chip_smoke.py``'s ``kernels`` phase (``tools/kernel_batch.py``):
-the synthetic world at ``--refs`` references, one batch of 256 queries, K1's
-planes and, from K3, the host model and K4 in f64, K5's tip probabilities.
-Every design's output must be bit-equal to the package's; then each kernel is
+``DIR`` holds other sources of ``fold_planes.cu``, ``exact_cumsum.cu``,
+``fold_stream.cu`` and ``dd_cumsum.cu`` (with the ``*.cuh`` headers they
+include), for example the csrc directory of an earlier commit unpacked with
+``git archive``. They must export the package's C entry points with the
+package's argument lists (``rx_dd_cumsum_scratch_words`` too): a design
+whose entry differs is given a wrapper in its own copy. Each design is built
+by ``ops/_build.build_all`` into a directory of its own under the package's
+build directory, with the package's ``nvcc`` flags, and bound with the
+argument types of the package's wrappers. The inputs are those of
+``chip_smoke.py``'s ``kernels`` phase (``tools/kernel_batch.py``): the
+synthetic world at ``--refs`` references, one batch of 256 queries, K1's
+planes, the pair lists of ``build_pairs``, and, from K3 and the host model,
+K4's tip probabilities in f64 (K5) and f32 (K6 tip order, K7 bit-major).
+K10 also runs on a second batch whose queries all come from one family
+(``kernel_batch.family_queries``: most rows shared within a group), at
+every group size of ``--groups``. Every design's output must be bit-equal
+to the package's (K10's to K1's planes of the batch); then each case is
 timed by CUDA events (mean of ``REPS`` launches after a warm-up) with the
 designs in the order package, others, others reversed, package,
 ``--rounds`` times. Prints one JSON line with every turn's time, the median
-per design, each library's registers and spills from ``-Xptxas -v``, both
-kernels' bounds and K5's chain floor (``kernel_batch.dadd_latency``). Needs
-a GPU. Another kernel joins by an entry in ``KERNELS`` and its launch in
-``main``'s ``run``.
+and ``bound_share`` per design, each library's registers and spills from
+``-Xptxas -v``, every case's bounds and K5's chain floor
+(``kernel_batch.dadd_latency``). Needs a GPU. Another kernel joins by
+entries in ``KERNELS`` and ``CASES`` and its launch in ``main``'s ``run``.
 """
 
 from __future__ import annotations
@@ -32,26 +41,44 @@ import statistics
 import sys
 from pathlib import Path
 
-#: the kernels: source stem -> C entry (argument types from the wrapper's
+#: the kernel sources: stem -> C entry (argument types from the wrapper's
 #: module, so a design is called exactly as the package calls its own)
-KERNELS = {"fold_planes": "rx_fold_planes", "exact_cumsum": "rx_exact_cumsum"}
+KERNELS = {"fold_planes": "rx_fold_planes", "exact_cumsum": "rx_exact_cumsum",
+           "fold_stream": "rx_fold_stream", "dd_cumsum": "rx_dd_cumsum"}
+#: the timed cases: name -> source stem (K7 is the bit-major form of K6)
+CASES = {"fold_planes": "fold_planes", "exact_cumsum": "exact_cumsum",
+         "fold_stream": "fold_stream", "dd_cumsum": "dd_cumsum",
+         "dd_cumsum_bitmajor": "dd_cumsum"}
 BATCH = 256  # queries, as in chip_smoke.py's kernels phase
 REPS = 5  # launches per timed turn
 
 
+def package_argtypes(stem: str) -> list:
+    from ..ops import exactscan, intersect_fold, intersect_stream, planes
+
+    return {"fold_planes": intersect_fold._ARGTYPES,
+            "exact_cumsum": exactscan._ARGTYPES,
+            "fold_stream": intersect_stream._STREAM_ARGTYPES,
+            "dd_cumsum": planes._DD_ARGTYPES}[stem]
+
+
 def build(csrc: Path, out: Path) -> tuple[dict, dict]:
     """Every source of ``KERNELS`` under ``csrc``, built into ``out``: the
-    entry points by stem, and nvcc's ``-Xptxas -v`` reading by stem."""
-    from ..ops import _build, exactscan, intersect_fold
+    entry points by stem (and K6/K7's scratch size as
+    ``dd_cumsum_scratch``), and nvcc's ``-Xptxas -v`` reading by stem."""
+    from ..ops import _build, planes
 
-    argtypes = {"fold_planes": intersect_fold._ARGTYPES,
-                "exact_cumsum": exactscan._ARGTYPES}
     _build.build_all(tuple(KERNELS), csrc, out)
     fns, usage = {}, {}
     for stem, entry in KERNELS.items():
-        fn = getattr(ctypes.CDLL(str(_build._lib_path(stem, csrc, out))), entry)
-        fn.restype, fn.argtypes = ctypes.c_int, argtypes[stem]
+        lib = ctypes.CDLL(str(_build._lib_path(stem, csrc, out)))
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = ctypes.c_int, package_argtypes(stem)
         fns[stem] = fn
+        if stem == "dd_cumsum":
+            f = lib.rx_dd_cumsum_scratch_words
+            f.restype, f.argtypes = ctypes.c_longlong, planes._DD_SCRATCH_ARGTYPES
+            fns["dd_cumsum_scratch"] = f
         log = out / f"{stem}.nvcc.log"
         usage[stem] = ptxas_usage(log.read_text()) if log.is_file() else []
     return fns, usage
@@ -97,10 +124,18 @@ def mean_ms(fn, reps: int) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", required=True,
-                    help="a directory with other sources of the two kernels")
+                    help="a directory with other sources of the kernels")
     ap.add_argument("--refs", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated cases to time (default: all)")
+    ap.add_argument("--groups", default="1,2",
+                    help="K10's group sizes, each timed on both batches")
     a = ap.parse_args(argv)
+    cases = [c for c in a.cases.split(",") if c]
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases: one of {', '.join(CASES)}")
+    groups = [int(g) for g in a.groups.split(",") if g]
 
     import torch
 
@@ -108,15 +143,19 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 1
     from ..engine.device import DeviceClassifier
-    from ..ops import _build
+    from ..ops import _build, intersect_stream as st, planes as pl
     from ..ops.exactscan import exact_cumsum
     from ..ops.intersect_fold import fold_planes
-    from ..ops.planes import planes_histogram, planes_probs
     from .kernel_batch import (
         batch_inputs,
+        batch_probs32,
         dadd_latency,
+        dd_cumsum_bounds,
         exact_cumsum_bounds,
+        family_queries,
         fold_planes_bounds,
+        fold_stream_bounds,
+        group_row_loads,
     )
     from .profile_path import gpu_line
     from .profile_stages import host_tables
@@ -128,8 +167,9 @@ def main(argv=None) -> int:
     fns, usage = {}, {}
     for i, (label, csrc) in enumerate(designs.items()):
         built, use = build(csrc, _build.BUILD_DIR / "ab" / str(i))
+        for stem, fn in built.items():
+            fns[label, stem] = fn
         for stem in KERNELS:
-            fns[label, stem] = built[stem]
             usage[f"{label}:{stem}"] = use[stem]
 
     db, queries, _ = build_world(a.refs, B)
@@ -141,69 +181,172 @@ def main(argv=None) -> int:
     planes = fold_planes(d_idx, d_ks, km3, max_count=k_pad)
     P = int(planes.shape[1])
     S, W = int(km3.shape[1]), int(km3.shape[1] * km3.shape[2])
-    hist = planes_histogram(planes, s_max, db.num_tips)
+    hist = pl.planes_histogram(planes, s_max, db.num_tips)
     tab = torch.from_numpy(host_tables(hist, ks, s_max)).to(dev)
-    p = planes_probs(planes, tab).reshape(B, -1).contiguous()
+    p = pl.planes_probs(planes, tab).reshape(B, -1).contiguous()
     N = int(p.shape[1])
-    cum = exact_cumsum(p)
+    cum = exact_cumsum(p) if "exact_cumsum" in cases else None
+    del tab
+    probs32 = batch_probs32(planes, hist, ks, s_max)  # [B, 32, S, 128]
+    flat32 = probs32.reshape(B, -1)  # tip order of the flat layout
+    want = {}
+    if "dd_cumsum" in cases:
+        want["dd_cumsum"] = tuple(t[:, 1:] for t in pl.dd_cumsum(flat32))
+    if "dd_cumsum_bitmajor" in cases:
+        want["dd_cumsum_bitmajor"] = tuple(
+            t[:, 1:] for t in pl.dd_cumsum_bitmajor(probs32))
+    # K10's two batches: the world's (one query per family) and one family's
+    stream_batches = {"world": (kmer_idx, ks, k_pad, flat_k, off_k, d_idx,
+                                planes)}
+    if "fold_stream" in cases:
+        f_idx, f_ks, f_pad, _, f_flat, f_off = batch_inputs(
+            family_queries(B), B)
+        d_f_idx = torch.from_numpy(f_idx).to(dev)
+        f_planes = fold_planes(d_f_idx, torch.from_numpy(f_ks).to(dev), km3,
+                               max_count=f_pad)
+        stream_batches["family"] = (f_idx, f_ks, f_pad, f_flat, f_off,
+                                    d_f_idx, f_planes)
+    pair_cache = {}
+
+    def pairs_for(batch: str, group: int):
+        if (batch, group) not in pair_cache:
+            q, r, lo, hi = st.build_pairs(stream_batches[batch][5], group)
+            pair_cache[batch, group] = (((q % group) << st.ROW_BITS) | r, lo, hi)
+        return pair_cache[batch, group]
+
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run(label: str, stem: str):
-        if stem == "fold_planes":
+    def run_stream(label: str, batch: str, group: int):
+        packed, lo, hi = pairs_for(batch, group)
+        ref = stream_batches[batch][6]
+        out = torch.empty_like(ref)
+        code = fns[label, "fold_stream"](
+            packed.data_ptr(), lo.data_ptr(), hi.data_ptr(), km3.data_ptr(),
+            out.data_ptr(), B, int(ref.shape[1]), W, group, stream)
+        return code, out
+
+    def run_dd(label: str, x, rows: int, bitmajor: bool):
+        pad, words = pl.DD_OUT_PAD, fns[label, "dd_cumsum_scratch"]
+        scratch = torch.empty(words(B, N, rows, 0), dtype=torch.int32,
+                              device=dev)
+        scratch[: words(B, N, rows, 1)].zero_()
+        hi = torch.empty((B, N + pad), dtype=torch.float32, device=dev)
+        lo = torch.empty_like(hi)
+        code = fns[label, "dd_cumsum"](
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), B, N, rows,
+            int(bitmajor), N + pad, pad, scratch.data_ptr(), stream)
+        return code, (hi[:, pad:], lo[:, pad:])
+
+    def run(label: str, case: str, batch: str = "world",
+            group: int = st.stream_group_size(B, P)):
+        if case == "fold_planes":
             out = torch.empty_like(planes)
-            code = fns[label, stem](d_idx.data_ptr(), d_ks.data_ptr(),
+            code = fns[label, case](d_idx.data_ptr(), d_ks.data_ptr(),
                                     km3.data_ptr(), out.data_ptr(), B, k_pad,
                                     W, P - 4, stream)
-        else:
+        elif case == "exact_cumsum":
             out = torch.empty_like(cum)
-            code = fns[label, stem](p.data_ptr(), out.data_ptr(), B, N, stream)
+            code = fns[label, case](p.data_ptr(), out.data_ptr(), B, N, stream)
+        elif case == "fold_stream":
+            code, out = run_stream(label, batch, group)
+        elif case == "dd_cumsum":
+            code, out = run_dd(label, flat32, min(N // 128, pl.DD_TILE_ROWS),
+                               False)
+        else:
+            code, out = run_dd(label, probs32,
+                               min(N // 128, pl.DD_TILE_ROWS_BITMAJOR), True)
         if code != 0:
-            raise RuntimeError(f"{label} {stem}: CUDA error {code}")
+            raise RuntimeError(f"{label} {case}: CUDA error {code}")
         return out
 
     def same(x, y) -> bool:
-        if x.dtype == torch.float64:
-            x, y = x.view(torch.int64), y.view(torch.int64)
+        if isinstance(x, tuple):
+            return all(same(u, v) for u, v in zip(x, y))
+        if x.dtype.is_floating_point:
+            it = torch.int64 if x.dtype == torch.float64 else torch.int32
+            x, y = x.view(it), y.view(it)
         return bool(torch.equal(x, y))
 
+    refs = {"fold_planes": planes, "exact_cumsum": cum, **want}
+    # every K10 variant: (batch, group)
+    variants = [(b, g) for b in stream_batches for g in groups] \
+        if "fold_stream" in cases else []
     for label in designs:
-        if not same(run(label, "fold_planes"), planes):
-            raise AssertionError(f"{label}: fold_planes differs from the package's")
-        if not same(run(label, "exact_cumsum"), cum):
-            raise AssertionError(f"{label}: exact_cumsum differs from the package's")
+        for case in cases:
+            if case == "fold_stream":
+                continue
+            if not same(run(label, case), refs[case]):
+                raise AssertionError(f"{label}: {case} differs from the package's")
+        for batch, group in variants:
+            if not same(run(label, "fold_stream", batch, group),
+                        stream_batches[batch][6]):
+                raise AssertionError(
+                    f"{label}: fold_stream, {batch} batch, groups of {group}, "
+                    "differs from K1's planes")
     del clf
 
     labels = list(designs)
     order = labels + labels[1:][::-1] + labels[:1]
-    turns = {stem: {l: [] for l in labels} for stem in KERNELS}
+    keys = [c for c in cases if c != "fold_stream"] + variants
+    turns = {key: {l: [] for l in labels} for key in keys}
     for _ in range(a.rounds):
-        for stem in KERNELS:
+        for key in keys:
+            args = ("fold_stream", *key) if isinstance(key, tuple) else (key,)
             for label in order:
-                turns[stem][label].append(
-                    mean_ms(lambda: run(label, stem), REPS))
-    lat = dadd_latency(dev)
-    print(json.dumps({
-        "gpu": gpu_line(), "refs": a.refs, "batch": B, "order": order,
-        "reps": REPS, "rounds": a.rounds, "bits_equal": True,
-        "fold_planes": {
-            "shape": {"B": B, "k_pad": k_pad, "W": W, "P": P, "S": S},
-            **fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W, P),
-            "turns_ms": turns["fold_planes"],
-            "median_ms": {l: statistics.median(v)
-                          for l, v in turns["fold_planes"].items()},
-        },
-        "exact_cumsum": {
-            "shape": {"B": B, "N": N},
-            **exact_cumsum_bounds(B, N),
-            **lat, "chain_floor_ms": N * lat["dadd_latency_ns"] * 1e-6,
-            "turns_ms": turns["exact_cumsum"],
-            "median_ms": {l: statistics.median(v)
-                          for l, v in turns["exact_cumsum"].items()},
-            "ns_per_chain_step": {l: statistics.median(v) * 1e6 / N
-                                  for l, v in turns["exact_cumsum"].items()},
-        },
-        "ptxas": usage,
-    }), flush=True)
+                turns[key][label].append(
+                    mean_ms(lambda: run(label, *args), REPS))
+
+    group = st.stream_group_size(B, P)
+    bounds = {
+        "fold_planes": fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W, P),
+        "exact_cumsum": exact_cumsum_bounds(B, N),
+        "dd_cumsum": dd_cumsum_bounds(B, N),
+        "dd_cumsum_bitmajor": dd_cumsum_bounds(B, N),
+    }
+    for batch, g in variants:
+        idx_b, ks_b, pad_b, flat_b, off_b, _, planes_b = stream_batches[batch]
+        bounds[batch, g] = {
+            **fold_stream_bounds(idx_b, ks_b, flat_b, off_b, W,
+                                 int(planes_b.shape[1]), B * pad_b, -(-B // g)),
+            "row_loads": group_row_loads(idx_b, ks_b, g),
+        }
+    shapes = {
+        "fold_planes": {"B": B, "k_pad": k_pad, "W": W, "P": P, "S": S},
+        "exact_cumsum": {"B": B, "N": N},
+        "dd_cumsum": {"B": B, "N": N, "tile_rows": pl.DD_TILE_ROWS},
+        "dd_cumsum_bitmajor": {"B": B, "N": N,
+                               "tile_rows": pl.DD_TILE_ROWS_BITMAJOR},
+    }
+    line = {"gpu": gpu_line(), "refs": a.refs, "batch": B, "order": order,
+            "reps": REPS, "rounds": a.rounds, "bits_equal": True}
+
+    def summary(key) -> dict:
+        med = {l: statistics.median(v) for l, v in turns[key].items()}
+        return {**bounds[key], "turns_ms": turns[key], "median_ms": med,
+                "bound_share": {l: bounds[key]["bound_ms"] / m
+                                for l, m in med.items()}}
+
+    for case in cases:
+        if case != "fold_stream":
+            line[case] = {"shape": shapes[case], **summary(case)}
+    if variants:
+        # one entry per batch and group; the engine's group on the world's
+        # batch is the case's headline
+        line["fold_stream"] = {
+            "shape": {"B": B, "W": W, "slice_bytes": 512, "engine_group": group},
+            **{f"{b}, groups of {g}": {"k_pad": stream_batches[b][2],
+                                       "P": int(stream_batches[b][6].shape[1]),
+                                       **summary((b, g))}
+               for b, g in variants},
+        }
+    if "exact_cumsum" in cases:
+        lat = dadd_latency(dev)
+        med = line["exact_cumsum"]["median_ms"]
+        line["exact_cumsum"].update(
+            **lat, chain_floor_ms=N * lat["dadd_latency_ns"] * 1e-6,
+            ns_per_chain_step={l: m * 1e6 / N for l, m in med.items()})
+    line["ptxas"] = usage
+    print(json.dumps(line), flush=True)
     return 0
 
 

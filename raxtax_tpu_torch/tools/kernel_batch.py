@@ -1,5 +1,5 @@
-"""One batch of queries at the kernels' shapes, and the bounds of K1 and K5
-on it: shared by ``chip_smoke.py``'s ``kernels`` phase and
+"""One batch of queries at the kernels' shapes, and the bounds of K1, K5,
+K10 and K6/K7 on it: shared by ``chip_smoke.py``'s ``kernels`` phase and
 ``tools/kernel_ab.py``, so both time the same inputs against the same
 bounds.
 
@@ -39,6 +39,40 @@ def batch_inputs(queries, batch: int):
     return kmer_idx, ks, k_pad, s_max, flat_k, off_k
 
 
+def family_queries(n: int, family: int = 0):
+    """``n`` queries of the synthetic world all drawn from one family's
+    consensus (10 mutations each, ``synth.synth_queries``'s draws): a batch
+    whose queries share most of their rows, as an amplicon run of one
+    species does. The world's own queries come from ``n`` families."""
+    from .synth import N_FAMILIES, synth_fam, synth_queries
+
+    fam, _ = synth_fam()
+    return synth_queries(np.repeat(fam[family : family + 1], N_FAMILIES, 0), n)
+
+
+def group_row_loads(kmer_idx, ks, group: int) -> int:
+    """Row loads of the stream fold on a batch in groups of ``group``
+    queries: the distinct rows of each group, summed over the groups."""
+    loads = 0
+    for g0 in range(0, ks.shape[0], group):
+        rows = [kmer_idx[b, : ks[b]] for b in range(g0, min(g0 + group, ks.shape[0]))]
+        loads += int(np.unique(np.concatenate(rows)).size)
+    return loads
+
+
+def batch_probs32(planes, hist, ks, s_max: int):
+    """K4's ``[B, 32, S, 128]`` f32 tip probabilities of the batch, from
+    its planes and histogram through the host model: what the double-f32
+    path hands its scan."""
+    import torch
+
+    from ..ops.planes import planes_probs
+    from .profile_stages import host_tables
+
+    tab = torch.from_numpy(host_tables(hist, ks, s_max)).to(planes.device)
+    return planes_probs(planes, tab.float())
+
+
 def bound(t_bytes: float, t_ops: float) -> dict:
     """``bound_ms`` and ``bound_by`` from the two times in seconds."""
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -58,6 +92,38 @@ def fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W: int, P: int) -> dict:
         **bound(once / PEAK_BYTES_PER_S, rows * W * 6 / PEAK_INT32_OPS),
         "stream_bound_ms": (rows * W * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3,
         "rows_folded": rows, "unique_rows": uniq,
+    }
+
+
+def fold_stream_bounds(kmer_idx, ks, flat_k, off_k, W: int, P: int,
+                       n_pairs_listed: int, n_groups: int) -> dict:
+    """K10 on one batch: every row the batch names read once, the planes
+    written and the pair lists read (``n_pairs_listed`` packed pairs and
+    two group bounds per group); ``stream_bound_ms`` streams all
+    ``rows_folded`` rows. Adding a row word into a counter takes at least
+    one operation, so the operations are one per word and pair."""
+    B = ks.shape[0]
+    k1 = fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W, P)
+    rows = k1["rows_folded"]
+    out_bytes = B * P * W * 4
+    once = k1["unique_rows"] * W * 4 + out_bytes + n_pairs_listed * 4 \
+        + n_groups * 8
+    return {
+        **bound(once / PEAK_BYTES_PER_S, rows * W / PEAK_INT32_OPS),
+        "stream_bound_ms": (rows * W * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3,
+        "rows_folded": rows, "unique_rows": k1["unique_rows"],
+    }
+
+
+def dd_cumsum_bounds(B: int, N: int) -> dict:
+    """K6 / K7 at ``[B, N]``: 4 bytes read and 8 written per tip (and the
+    zero column); ``reload_bound_ms`` is the two-sweep form that reads every
+    tip twice (16 bytes). Each tip takes 9 compensated adds of 8 f32
+    operations: 7 lane steps, the row offset and the carry."""
+    return {
+        **bound((B * N * 12 + B * 8) / PEAK_BYTES_PER_S,
+                B * N * 9 * 8 / PEAK_F32_ADDS),
+        "reload_bound_ms": (B * N * 16 + B * 8) / PEAK_BYTES_PER_S * 1e3,
     }
 
 

@@ -261,8 +261,9 @@ def test_gathered_fold_kernel_equals_plain_and_dense(cuda):
 
 
 def test_stream_fold_kernel_equals_plain_and_dense(cuda):
-    """K10 against its plain version and against K1: one group, several
-    groups with a ragged last one, and a ragged column tile."""
+    """K10 against its plain version and against K1: groups of two with a
+    ragged last group (9 queries) and of one, on rows of 384 words (ragged
+    on the 128-word column slices) and of 256; larger groups are refused."""
     from raxtax_tpu_torch.ops import intersect_fold as tf
     from raxtax_tpu_torch.ops import intersect_stream as ts
 
@@ -272,14 +273,93 @@ def test_stream_fold_kernel_equals_plain_and_dense(cuda):
         dense = tf.fold_planes(idx, kc, km3, max_count=k_pad)
         P = ts.n_planes_for(k_pad)
         assert P == dense.shape[1]
-        for group in (B, 4, 1):
+        for group in (ts.MAX_GROUP, 1):
             pairs = ts.build_pairs(idx, group)
+            plain = ts.fold_planes_stream_plain(pairs[0], pairs[1], km3, B, P)
             got = ts.fold_planes_stream(*pairs, km3, B, group, P)
-            assert torch.equal(got, dense)
-            assert torch.equal(
-                got, ts.fold_planes_stream_plain(pairs[0], pairs[1], km3, B, P)
-            )
+            assert torch.equal(got, dense), group
+            assert torch.equal(got, plain), group
         assert torch.equal(ts.intersection_planes_stream(idx, km3, k_pad), dense)
+        pairs = ts.build_pairs(idx, ts.MAX_GROUP + 1)
+        with pytest.raises(ValueError, match="groups of 1 to"):
+            ts.fold_planes_stream(*pairs, km3, B, ts.MAX_GROUP + 1, P)
+
+
+def test_stream_fold_kernel_ragged_groups_and_full_counts(cuda):
+    """K10 where a whole group has no real pair, where rows are shared
+    inside groups (one load, several queries), past a chunk of 1,024 pairs,
+    and where a count reaches 2^P - 1 in every plane: equal to its plain
+    version and to K1."""
+    from raxtax_tpu_torch.ops import intersect_fold as tf
+    from raxtax_tpu_torch.ops import intersect_stream as ts
+
+    rng = np.random.default_rng(9)
+    n_words = 640  # 160 uint4 a row: five 512-byte column slices
+    km = rng.integers(0, 2**32, size=(65537, n_words), dtype=np.uint64).astype(np.uint32)
+    km[65536] = 0
+    km[:255, :128] = 0xFFFFFFFF  # rows 0..254: every bit of the first 128 words
+    k_pad = 256
+    kc = np.array([255, 0, 0, 0, 0, 0, 0, 0, 255, 7, 200, 255, 3, 1], np.int32)
+    idx = np.full((kc.size, k_pad), 65536, np.int32)
+    idx[0, :255] = np.arange(255)
+    idx[8, :255] = np.arange(255)  # the same rows as query 0
+    idx[11, :255] = np.sort(rng.choice(900, 255, replace=False))
+    for b in (9, 10, 12, 13):
+        idx[b, : kc[b]] = np.sort(rng.choice(300, kc[b], replace=False))
+    idx_t = torch.from_numpy(idx).to(cuda)
+    km3 = torch.from_numpy(km.view(np.int32)).reshape(65537, -1, 128).to(cuda)
+    kc_t = torch.from_numpy(kc).to(cuda)
+    B = kc.size
+    P = ts.n_planes_for(255)  # 8 planes: a count of 255 sets all of them
+    dense = tf.fold_planes(idx_t, kc_t, km3, max_count=255)
+    assert dense.shape[1] == P
+    assert bool((dense[0, :, 0, 0] == -1).all())  # 255 = 2^8 - 1
+    for group in (2, 1):  # queries 1..7: empty groups; 14 = 7 groups of 2
+        pairs = ts.build_pairs(idx_t, group)
+        plain = ts.fold_planes_stream_plain(pairs[0], pairs[1], km3, B, P)
+        got = ts.fold_planes_stream(*pairs, km3, B, group, P)
+        assert torch.equal(got, plain), group
+        assert torch.equal(got, dense), group
+    # one group of 2 queries with 1,200 pairs: the run list is rebuilt
+    big = np.full((3, 640), 65536, np.int32)
+    for b in range(3):
+        big[b, :600] = np.sort(rng.choice(1000, 600, replace=False))
+    big_t = torch.from_numpy(big).to(cuda)
+    kc_big = torch.full((3,), 600, dtype=torch.int32, device=cuda)
+    dense = tf.fold_planes(big_t, kc_big, km3, max_count=640)
+    pairs = ts.build_pairs(big_t, 2)
+    assert int(pairs[3][0] - pairs[2][0]) == 2 * 600 > 1024
+    assert torch.equal(
+        ts.fold_planes_stream(*pairs, km3, 3, 2, dense.shape[1]), dense)
+
+
+@pytest.mark.parametrize("bitmajor", [False, True])
+@pytest.mark.parametrize("b", [1, 133])
+def test_dd_scan_kernels_ragged_shapes_equal_plain(cuda, bitmajor, b):
+    """K6 and K7 bit for bit against their plain versions where the chunks
+    of 64 rows, the tiles and the tickets are ragged: one row (K6, N = 128),
+    a tile that ends in a partial chunk, a partial last tile, and a carry
+    handed across many tiles."""
+    from raxtax_tpu_torch.ops import planes as pl
+
+    rng = np.random.default_rng(10 + b)
+    if bitmajor:
+        shapes, tile = [(b, 32, s, 128) for s in (1, 11, 40)], pl.DD_TILE_ROWS_BITMAJOR
+    else:
+        shapes, tile = [(b, n * 128) for n in (1, 37, 1024 + 65, 12 * 1024 + 1)], \
+            pl.DD_TILE_ROWS
+    for shape in shapes:
+        x = _dd_inputs(rng, shape).to(cuda)
+        hz, lz = (pl.dd_cumsum_bitmajor if bitmajor else pl.dd_cumsum)(x)
+        flat = pl.probs_to_tip_order(x).contiguous() if bitmajor else x
+        N = flat.shape[1]
+        assert hz.shape == lz.shape == (b, N + 1)
+        assert not bool(hz[:, 0].any()) and not bool(lz[:, 0].any())
+        p_hi, p_lo = pl.dd_cumsum_plain(flat, tile)
+        assert torch.equal(hz[:, 1:].contiguous().view(torch.int32),
+                           p_hi.view(torch.int32)), shape
+        assert torch.equal(lz[:, 1:].contiguous().view(torch.int32),
+                           p_lo.view(torch.int32)), shape
 
 
 def test_probe_f64_ew_kernel_equals_plain_and_hardware(cuda):

@@ -1,9 +1,12 @@
 """``tools/kernel_ab.py`` and ``tools/kernel_batch.py`` off the card: the
-reading of nvcc's resource report, the bounds of K1 and K5, the plain
-version of the chain that measures K5's floor, and the A/B tool's refusal to
-run without a GPU (it has no CPU mode)."""
+reading of nvcc's resource report, the argument lists it binds every design
+with, the bounds of K1, K5, K10 and K6/K7, the one-family batch of K10, the
+plain version of the chain that measures K5's floor, and the A/B tool's
+refusal to run without a GPU (it has no CPU mode)."""
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -68,3 +71,62 @@ def test_dadd_chain_on_the_cpu_is_the_host_loop():
         acc = acc + np.float64(kernel_batch.CHAIN_ADDENDS[i % 8])
     assert got[0].numpy().view(np.uint64) == np.array(acc).view(np.uint64)
     assert math.isnan(got[1].item())
+
+
+CSRC = Path(kernel_ab.__file__).resolve().parent.parent / "csrc"
+
+
+def _arity(source: str, entry: str) -> int:
+    m = re.search(rf"RX_EXPORT [a-z ]+ {entry}\(([^)]*)\)", source)
+    assert m is not None, entry
+    return m.group(1).count(",") + 1
+
+
+def test_package_sources_take_the_argument_lists_designs_are_bound_with():
+    """Every design is bound with the argument types of the package's
+    wrappers: the package's own C entry points take exactly those."""
+    from raxtax_tpu_torch.ops import planes
+
+    assert set(kernel_ab.CASES.values()) == set(kernel_ab.KERNELS)
+    for stem, entry in kernel_ab.KERNELS.items():
+        source = (CSRC / f"{stem}.cu").read_text()
+        assert _arity(source, entry) == len(kernel_ab.package_argtypes(stem))
+    source = (CSRC / "dd_cumsum.cu").read_text()
+    assert _arity(source, "rx_dd_cumsum_scratch_words") == \
+        len(planes._DD_SCRATCH_ARGTYPES)
+
+
+def test_family_batch_shares_rows_within_groups():
+    """The one-family batch K10 is also timed on: its queries share most
+    rows, so groups of two load far fewer rows than its pairs; the world's
+    queries, one per family, share almost none."""
+    from raxtax_tpu_torch.tools.synth import synth_fam, synth_queries
+
+    B = 16
+    world = synth_queries(synth_fam()[0], B)
+    for queries, lo, hi in ((kernel_batch.family_queries(B), 0.5, 0.8),
+                            (world, 0.95, 1.0)):
+        idx, ks, *_ = kernel_batch.batch_inputs(queries, B)
+        pairs = int(ks.sum())
+        assert kernel_batch.group_row_loads(idx, ks, 1) == pairs
+        # a row is loaded once per group: at least half the pairs' loads
+        assert lo * pairs <= kernel_batch.group_row_loads(idx, ks, 2) <= hi * pairs
+
+
+def test_bounds_of_stream_fold_and_dd_scan():
+    B, N = 256, 1_015_808
+    dd = kernel_batch.dd_cumsum_bounds(B, N)
+    assert dd["bound_by"] == "bytes"
+    assert dd["bound_ms"] == (B * N * 12 + B * 8) / 3.35e12 * 1e3
+    assert dd["reload_bound_ms"] == (B * N * 16 + B * 8) / 3.35e12 * 1e3
+    # the K1 example's batch: four rows read once, the pair lists beside
+    ks = np.array([2, 3], np.int32)
+    flat, off = np.array([1, 2, 2, 5, 7], np.int32), np.array([0, 2, 5])
+    idx = np.zeros((2, 128), np.int32)
+    k10 = kernel_batch.fold_stream_bounds(idx, ks, flat, off, W=4096, P=8,
+                                          n_pairs_listed=256, n_groups=1)
+    out_bytes = 2 * 8 * 4096 * 4
+    assert k10["bound_ms"] == (4 * 4096 * 4 + out_bytes + 256 * 4 + 8) \
+        / 3.35e12 * 1e3
+    assert (k10["unique_rows"], k10["rows_folded"]) == (4, 5)
+    assert k10["stream_bound_ms"] == (5 * 4096 * 4 + out_bytes) / 3.35e12 * 1e3

@@ -151,8 +151,9 @@ def test_build_pairs_groups_partition_the_batch():
 
 
 def test_group_size_and_argument_checks():
-    assert ts.stream_group_size(256, 10) == 4  # four CTAs of 48 KB per SM
-    assert ts.stream_group_size(4, 10) == 4 and ts.stream_group_size(256, 16) >= 1
+    # the measured group, at most the batch and the kernel's largest
+    assert ts.stream_group_size(256, 10) == ts.GROUP_SIZE <= ts.MAX_GROUP
+    assert ts.stream_group_size(1, 10) == 1 and ts.stream_group_size(256, 16) >= 1
     assert [ts.n_planes_for(k) for k in (1, 15, 16, 32, 512)] == [1, 4, 5, 6, 10]
     km3 = torch.zeros((65537, 1, 128), dtype=torch.int32)
     idx = torch.full((2, 16), PAD_ROW, dtype=torch.int32)
