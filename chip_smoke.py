@@ -24,8 +24,10 @@ It needs no arguments, no network and no JAX. It
    (``path_1m_stream``) and, for two batches, with the gathered fold
    (``path_1m_gathered``),
 6. runs each kernel at that size against its plain PyTorch version, bit for
-   bit — the gathered and the stream fold also against the dense fold — and
-   times both (``kernels``),
+   bit — the sparse, the gathered and the stream fold also against the dense
+   fold, the histogram also on random planes whose tips nearly all count 16
+   or more — and times both (``kernels``; K2 and K3 also at 65,536
+   references, from ``path_65k_dd``),
 7. drives the double-f32 path at that size, checks it against the oracle and
    reports throughput, phase times, peak memory, pairs per query, host
    replays and whether the fold flipped to dense (``path_1m_dd``),
@@ -78,7 +80,10 @@ from raxtax_tpu_torch.tools.kernel_batch import (  # noqa: E402
     batch_inputs,
     batch_probs32,
     dd_cumsum_bounds,
+    fold_sparse_bounds,
     fold_stream_bounds,
+    planes_hist_bounds,
+    tail_tips,
 )
 
 N_QUERIES = 2048
@@ -323,9 +328,10 @@ def phase_path_65k(db, queries, build_s: float) -> dict:
 
 def fold_compare(state, queries, with_plain: bool) -> dict:
     """K2 against K1 on the same batch (bit for bit) and, with
-    ``with_plain``, against its plain version; both kernels' times. The
-    pair budget is lifted here so K2 runs at any pair count: the numbers are
-    what a later choice of the sparse/dense crossover needs."""
+    ``with_plain``, against its plain version; both kernels' times and the
+    device time of the regroup by block that the wrapper runs before K2.
+    The pair budget is lifted here so K2 runs at any pair count: the numbers
+    are what a later choice of the sparse/dense crossover needs."""
     from raxtax_tpu_torch.engine.device import (
         SPARSE_BUDGET_MIN,
         SPARSE_CROSSOVER_DIV,
@@ -366,35 +372,49 @@ def fold_compare(state, queries, with_plain: bool) -> dict:
     k2_ms = cuda_ms(lambda: fo.fold_planes_sparse(
         d_pk, d_pb, d_tot, km3, max_count=k_pad))
     k1_ms = cuda_ms(lambda: fo.fold_planes(d_idx, d_ks, km3, max_count=k_pad))
+    regroup_ms = cuda_ms(lambda: fo.group_pairs_by_block(
+        d_pk, d_pb, d_tot, S // fo.BLOCK_SUB))
     W = S * 128
-    n_pairs = int(totals.sum())
-    # a 4 KB sub-row that several queries of the batch fold has to leave
-    # memory once: the bound counts the distinct (k-mer, block) pairs
-    valid = np.arange(pair_kmer.shape[1])[None, :] < totals[:, None]
-    uniq_pairs = int(np.unique(
-        pair_kmer[valid].astype(np.int64) * (S // fo.BLOCK_SUB) + pair_blk[valid]
-    ).size)
-    out_bytes = BATCH * P * W * 4
-    in_small = 2 * pair_kmer.nbytes + totals.size * 4
-    t_bytes = (
-        uniq_pairs * fo.BLOCK_WORDS * 4 + out_bytes + in_small
-    ) / PEAK_BYTES_PER_S
-    t_ops = n_pairs * fo.BLOCK_WORDS * 2 * P / PEAK_INT32_OPS
     return {
         "sparse_ms": k2_ms, "dense_ms": k1_ms, "plain_ms": plain_ms,
+        # the wrapper's regroup (sort, gather, searchsorted) before K2; it is
+        # inside sparse_ms too
+        "regroup_ms": regroup_ms,
         "max_abs_err": err, "bits_equal_dense": True,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        # every (query, pair) sub-row streamed from memory, no reuse between
-        # queries: what the kernel's access pattern asks of the card
-        "stream_bound_ms": (n_pairs * fo.BLOCK_WORDS * 4 + out_bytes + in_small)
-        / PEAK_BYTES_PER_S * 1e3,
-        "pairs": n_pairs, "unique_pairs": uniq_pairs,
-        "pairs_per_query_mean": n_pairs / BATCH, "pairs_per_query_max": max_pairs,
+        **fold_sparse_bounds(pair_kmer, pair_blk, totals, W, P),
+        "pairs_per_query_mean": int(totals.sum()) / BATCH,
+        "pairs_per_query_max": max_pairs,
         "pair_budget": max(SPARSE_BUDGET_MIN, k_pad * S // SPARSE_CROSSOVER_DIV),
         "shape": {"B": BATCH, "k_pad": k_pad, "W": W, "P": P,
                   "blocks": S // fo.BLOCK_SUB, "p_pad": int(pair_kmer.shape[1])},
     }
+
+
+def hist_compare(planes, s_max: int, n_tips: int):
+    """K3 on ``planes`` against its plain version (bit for bit, 32 queries
+    at a time): ``(its time, bound and share of tips of 16 or more -- the
+    ones it decodes one by one --, the histogram)``."""
+    from raxtax_tpu_torch.ops import planes as pl
+
+    B, P = int(planes.shape[0]), int(planes.shape[1])
+    W = int(planes.shape[2] * planes.shape[3])
+    hist = pl.planes_histogram(planes, s_max, n_tips)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain = torch.cat([
+        pl.planes_histogram_plain(planes[i : i + 32], s_max, n_tips)
+        for i in range(0, B, 32)
+    ])
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    if not bits_equal(hist, plain):
+        raise AssertionError("planes_histogram differs from its plain version")
+    ms = cuda_ms(lambda: pl.planes_histogram(planes, s_max, n_tips))
+    return {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs_err(hist, plain),
+        **planes_hist_bounds(B, P, W, s_max, tail_tips(planes)),
+        "shape": {"B": B, "P": P, "W": W, "s_max": s_max},
+    }, hist
 
 
 def world_probs32(db, queries, state) -> torch.Tensor:
@@ -510,6 +530,16 @@ def phase_path_65k_dd(db, queries):
                 f"{n_batches} batches"
             )
     folds = fold_compare(clf.state, queries, with_plain=True)
+    # K3 at this size, on K1's planes of the first batch
+    from raxtax_tpu_torch.ops.intersect_fold import fold_planes
+
+    idx, ks, k_pad, s_max, _, _ = batch_inputs(queries, BATCH)
+    dev = clf.state.device
+    planes = fold_planes(torch.from_numpy(idx).to(dev),
+                         torch.from_numpy(ks).to(dev), clf.state.kmer_major3,
+                         max_count=k_pad)
+    hist, _ = hist_compare(planes, s_max, db.num_tips)
+    del planes
     line = {
         "phase": "path_65k_dd", "refs": db.num_tips, "queries": len(queries),
         "batch": BATCH, "pass_s": round(dt, 3),
@@ -518,7 +548,7 @@ def phase_path_65k_dd(db, queries):
         "host_replays": clf.host_replays, "mux_dense": clf._mux_dense,
         "pairs_per_query_mean": clf.pair_stats[0] / max(clf.pair_stats[1], 1),
         "pairs_per_query_max": clf.pair_stats[2],
-        "fold_same_batch": folds,
+        "fold_same_batch": folds, "planes_hist_same_batch": hist,
     }
     del clf
     line["flag_combos"] = flag_combos(db, queries, dd=True)
@@ -829,32 +859,22 @@ def phase_kernels(db, queries, state) -> list[dict]:
         v["fold_planes_ms_same_batch"] = k1_again
 
     # K3 ------------------------------------------------------------------
-    hist = pl.planes_histogram(planes, s_max, n_tips)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    plain = torch.cat([
-        pl.planes_histogram_plain(planes[i : i + 32], s_max, n_tips)
-        for i in range(0, BATCH, 32)
-    ])
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
-    if not bits_equal(hist, plain):
-        raise AssertionError("planes_histogram differs from its plain version")
+    h, hist = hist_compare(planes, s_max, n_tips)
     if not bool((hist.sum(dim=1) == n_tips).all()):
         raise AssertionError("planes_histogram: mass is not num_tips")
-    err = max_abs_err(hist, plain)
-    ms = cuda_ms(lambda: pl.planes_histogram(planes, s_max, n_tips))
-    t_bytes = (BATCH * P * W * 4 + BATCH * s_max * 4) / PEAK_BYTES_PER_S
-    t_ops = BATCH * W * 32 * (3 * P + 1) / PEAK_INT32_OPS
+    # a tail-heavy input at the same shape: random planes, so nearly every
+    # tip counts 16 or more and goes through the kernel's one-by-one decode;
+    # s_max = 2^P keeps every count, and there are no pad tips
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rand = torch.randint(-(2**31), 2**31, tuple(planes.shape),
+                         dtype=torch.int32, device=dev, generator=gen)
+    tail, _ = hist_compare(rand, 1 << P, W * 32)
+    del rand
     out.append({
         "name": "planes_hist", "route": "cuda",
         "source": "raxtax_tpu_torch/csrc/planes_hist.cu",
         "replaces": "raxtax_tpu/ops/planes.py:74",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "shape": {"B": BATCH, "P": P, "W": W, "s_max": s_max},
+        "library_ms": None, **h, "tail_heavy": tail,
     })
 
     # K4 ------------------------------------------------------------------
@@ -962,6 +982,7 @@ def phase_kernels(db, queries, state) -> list[dict]:
         "unique_pairs": f["unique_pairs"],
         "shape": f["shape"], "bits_equal_fold_planes": True,
         "fold_planes_ms_same_batch": f["dense_ms"],
+        "regroup_ms": f["regroup_ms"],
         "pairs_per_query_mean": f["pairs_per_query_mean"],
         "pairs_per_query_max": f["pairs_per_query_max"],
         "pair_budget": f["pair_budget"],
@@ -1428,6 +1449,11 @@ def main() -> int:
         ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err", "shape")
     }
     kernels[i7] = k7_on_path
+    # K2 and K3 at 65,536 references (K2's path runs there), beside their
+    # numbers at the large size
+    for name, at_65k in (("fold_planes_sparse", p65_dd["fold_same_batch"]),
+                         ("planes_hist", p65_dd["planes_hist_same_batch"])):
+        next(k for k in kernels if k["name"] == name)["at_65k"] = at_65k
     kernels += probe_kernels + [k13]
     for k in kernels:
         for phase, counts, names in sources:

@@ -9,90 +9,60 @@
 // has no pair in. The planes are the binary digits of the count, so they are
 // bit for bit the planes of the dense fold (K1) over the same k-mers.
 //
-// Design for Hopper. The TPU kernel keeps one query's whole [P, S, 128]
-// accumulator on chip for the length of its pair list; that is megabytes at a
-// million references and does not fit an SM. Here the wrapper regroups each
-// query's pairs by block, and one CTA owns one (query, block): 256 threads,
-// one uint4 (four words of the 1,024-word block) each, all P planes of it in
-// registers. The CTA stages its k-mer ids in shared memory, keeps eight
-// independent 16-byte row loads in flight per thread (each pair is one
-// contiguous 4 KB run for the CTA), and adds every row with a ripple carry
-// through the P planes. Every (query, block) CTA writes its planes once, so
-// blocks without a pair come out zero and no memset is needed.
-//
 // Bound: bytes -- the batch's distinct (k-mer, block) pairs x 4 KB read (a
 // sub-row several queries fold leaves memory once) plus the planes written;
-// about 2 P logic operations per word of every pair.
-#include "rx_common.cuh"
+// the adder tree does about 6 logic operations per word of every pair.
+//
+// Design for Hopper. The TPU kernel keeps one query's whole [P, S, 128]
+// accumulator on chip and adds each pair's block at its own offset with a
+// ripple carry (about 2 P operations per word), the price of a per-pair
+// offset there. Here the wrapper regroups each query's pairs by block
+// (stable, so a block's k-mers stay in ascending order), and the kernel is
+// K1 with another row list: a CTA of 32 threads owns one 512-byte slice of
+// one block of one query (eight CTAs per 1,024-word block), reads the
+// block's bounds blk_off[b, blk], blk_off[b, blk + 1], and folds
+// kmer_by_blk[b, lo:hi] with K1's body (rx_fold_list in fold_ring.cuh): a
+// per-thread cp.async ring of stages of 16 rows, rows past the list
+// zero-filled, each stage through the carry-save adder tree, the planes in
+// registers and written once. An empty list writes zero planes, so no
+// memset is needed. The query is the fastest grid dimension, as in K1, so a
+// sub-row that several queries fold comes from L2 after its first read.
+#include "fold_ring.cuh"
 
 namespace {
 
-constexpr int SP_THREADS = 256;  // one uint4 each: 8 x 128 words per block
-constexpr int SP_IDS = 512;      // k-mer ids staged per shared-memory refill
-constexpr int SP_ROWS = 8;       // row loads in flight per thread
+constexpr int SLICES_PER_BLOCK = 1024 / (4 * FOLD_THREADS);  // 8
 
-template <int P>
-__global__ void __launch_bounds__(SP_THREADS)
-fold_sparse_kernel(const int* __restrict__ pair_kmer,  // [B, p_pad] by block
-                   const int* __restrict__ blk_off,    // [B, n_blocks + 1]
+template <int NH>
+__global__ void __launch_bounds__(FOLD_THREADS)
+fold_sparse_kernel(const int* __restrict__ kmer_by_blk,   // [B, p_pad]
+                   const int* __restrict__ blk_off,       // [B, n_blocks + 1]
                    const uint4* __restrict__ kmer_major,  // [rows, W4]
-                   uint4* __restrict__ out,               // [B, P, W4]
+                   uint4* __restrict__ out,               // [B, 4 + NH, W4]
                    int p_pad, int n_blocks, long long W4) {
-    __shared__ int ids[SP_IDS];
-    const int blk = blockIdx.x;
-    const int b = blockIdx.y;
-    const int* off = blk_off + (long long)b * (n_blocks + 1);
-    const int lo = off[blk];
-    const int hi = off[blk + 1];
-    const int* my = pair_kmer + (long long)b * p_pad;
-    const long long col = (long long)blk * SP_THREADS + threadIdx.x;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    __shared__ int ids[FOLD_ID_CHUNK];
+    extern __shared__ uint4 ring[];  // [FOLD_RING][FOLD_ROWS][FOLD_THREADS]
+    const int b = blockIdx.x;
+    const int* off = blk_off + (long long)b * (n_blocks + 1) +
+                     blockIdx.y / SLICES_PER_BLOCK;
+    const int lo = off[0];
+    const long long w = (long long)blockIdx.y * FOLD_THREADS + threadIdx.x;
+    rx_fold_list<NH>(kmer_by_blk + (long long)b * p_pad + lo, off[1] - lo,
+                     kmer_major + w, W4, true,
+                     out + (long long)b * (4 + NH) * W4 + w, ids, ring);
+}
 
-    uint4 acc[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) acc[p] = zero;
-
-    for (int p0 = lo; p0 < hi; p0 += SP_IDS) {
-        const int n = min(SP_IDS, hi - p0);
-        __syncthreads();  // previous chunk fully consumed
-        for (int i = threadIdx.x; i < n; i += SP_THREADS) ids[i] = my[p0 + i];
-        __syncthreads();
-        for (int j0 = 0; j0 < n; j0 += SP_ROWS) {
-            uint4 x[SP_ROWS];
-#pragma unroll
-            for (int i = 0; i < SP_ROWS; ++i) {
-                x[i] = (j0 + i < n)
-                           ? __ldg(kmer_major + (long long)ids[j0 + i] * W4 + col)
-                           : zero;
-            }
-#pragma unroll
-            for (int i = 0; i < SP_ROWS; ++i) {
-                uint4 carry = x[i];
-#pragma unroll
-                for (int p = 0; p < P; ++p) {
-                    const uint4 cur = acc[p];
-                    acc[p].x = cur.x ^ carry.x; carry.x = cur.x & carry.x;
-                    acc[p].y = cur.y ^ carry.y; carry.y = cur.y & carry.y;
-                    acc[p].z = cur.z ^ carry.z; carry.z = cur.z & carry.z;
-                    acc[p].w = cur.w ^ carry.w; carry.w = cur.w & carry.w;
-                }
-            }
-        }
+template <int NH>
+struct Launch {
+    static int run(const int* kmer_by_blk, const int* blk_off,
+                   const uint4* km, uint4* out, int B, int p_pad,
+                   int n_blocks, long long W4, cudaStream_t stream) {
+        dim3 grid(B, n_blocks * SLICES_PER_BLOCK);  // the query varies fastest
+        fold_sparse_kernel<NH><<<grid, FOLD_THREADS, FOLD_SMEM, stream>>>(
+            kmer_by_blk, blk_off, km, out, p_pad, n_blocks, W4);
+        return (int)cudaGetLastError();
     }
-    uint4* o = out + (long long)b * P * W4 + col;
-#pragma unroll
-    for (int p = 0; p < P; ++p) o[(long long)p * W4] = acc[p];
-}
-
-template <int P>
-int launch(const int* pair_kmer, const int* blk_off, const uint4* km,
-           uint4* out, int B, int p_pad, int n_blocks, long long W4,
-           cudaStream_t stream) {
-    dim3 grid(n_blocks, B);
-    fold_sparse_kernel<P><<<grid, SP_THREADS, 0, stream>>>(
-        pair_kmer, blk_off, km, out, p_pad, n_blocks, W4);
-    return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
@@ -104,28 +74,11 @@ RX_EXPORT int rx_fold_planes_sparse(const void* pair_kmer, const void* blk_off,
                                     int p_pad, long long W, int n_planes,
                                     void* stream) {
     if (B <= 0 || W <= 0) return 0;
-    if (W % 1024 != 0 || n_planes < 5 || n_planes > 16 || B > 65535 ||
-        p_pad < 1)
+    if (W % 1024 != 0 || n_planes < 5 || n_planes > 16 || p_pad < 1 ||
+        W / 4 > 65535LL * FOLD_THREADS)
         return (int)cudaErrorInvalidValue;
-    const int* pk = (const int*)pair_kmer;
-    const int* bo = (const int*)blk_off;
-    const uint4* km = (const uint4*)kmer_major;
-    uint4* o = (uint4*)out;
-    cudaStream_t s = (cudaStream_t)stream;
-    const long long W4 = W / 4;
-    const int nb = (int)(W / 1024);
-    switch (n_planes) {
-        case 5: return launch<5>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 6: return launch<6>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 7: return launch<7>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 8: return launch<8>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 9: return launch<9>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 10: return launch<10>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 11: return launch<11>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 12: return launch<12>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 13: return launch<13>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 14: return launch<14>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        case 15: return launch<15>(pk, bo, km, o, B, p_pad, nb, W4, s);
-        default: return launch<16>(pk, bo, km, o, B, p_pad, nb, W4, s);
-    }
+    return rx_fold_by_nh<Launch>(
+        n_planes - 4, (const int*)pair_kmer, (const int*)blk_off,
+        (const uint4*)kmer_major, (uint4*)out, B, p_pad, (int)(W / 1024),
+        W / 4, (cudaStream_t)stream);
 }

@@ -53,23 +53,6 @@ struct WarpSmem {
     int runs[CHUNK];             // row | query mask << ROW_BITS
 };
 
-__device__ __forceinline__ void cp_async16(uint4* smem, const uint4* gmem,
-                                           int src_bytes) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-                 "l"(gmem), "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // Tiers and high planes of one query's words: ones, twos, fours, eights
 // (the low four bits of the count) and NH more binary planes.
 template <int NH>
@@ -141,21 +124,21 @@ fold_stream_kernel(const int* __restrict__ pairs,       // packed, row-sorted
             for (int k = 0; k < RUNS; ++k) {
                 const int j = st * RUNS + k;
                 const bool real = live && j < n_runs;
-                cp_async16(&sm.ring[st % RING][k][lane],
-                           real ? col + (long long)(sm.runs[j] & ROW_MASK) * W4
-                                : col,
-                           real ? 16 : 0);
+                rx_cp_async16(
+                    &sm.ring[st % RING][k][lane],
+                    real ? col + (long long)(sm.runs[j] & ROW_MASK) * W4 : col,
+                    real ? 16 : 0);
             }
         };
         for (int st = 0; st < RING - 1; ++st) {
             if (st < n_st) fetch(st);
-            cp_async_commit();
+            rx_cp_async_commit();
         }
         for (int st = 0; st < n_st; ++st) {
-            cp_async_wait<RING - 2>();  // one group per stage, in order
+            rx_cp_async_wait<RING - 2>();  // one group per stage, in order
             // refill the slot folded one step ago (its reads have retired)
             if (st + RING - 1 < n_st) fetch(st + RING - 1);
-            cp_async_commit();
+            rx_cp_async_commit();
             // which runs of the stage each query holds (past the end: none)
             unsigned qmask[G];
 #pragma unroll
@@ -180,7 +163,7 @@ fold_stream_kernel(const int* __restrict__ pairs,       // packed, row-sorted
                                  acc[q].high, x);
             }
         }
-        cp_async_wait<0>();
+        rx_cp_async_wait<0>();
         __syncwarp();  // every lane is done with runs[] before it is rewritten
     }
     if (!live) return;

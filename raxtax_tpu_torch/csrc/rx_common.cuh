@@ -19,6 +19,27 @@ static inline int rx_div_up(long long a, long long b) {
 }
 
 #ifdef __CUDACC__
+// One 16-byte cp.async from device to shared memory, through L2 only; a
+// src_bytes of 0 zero-fills the 16 bytes and reads nothing. The folds (K1,
+// K2, K10) stage their rows with it, one commit group per ring stage.
+__device__ __forceinline__ void rx_cp_async16(uint4* smem, const uint4* gmem,
+                                              int src_bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+                 "l"(gmem), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void rx_cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void rx_cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Full adder on bit vectors: s = a ^ b ^ c, carry = majority(a, b, c).
 __device__ __forceinline__ void rx_csa(uint4& s, uint4& carry, const uint4 a,
                                        const uint4 b, const uint4 c) {
@@ -31,9 +52,10 @@ __device__ __forceinline__ void rx_csa(uint4& s, uint4& carry, const uint4 a,
     s.x = ab.x ^ c.x; s.y = ab.y ^ c.y; s.z = ab.z ^ c.z; s.w = ab.w ^ c.w;
 }
 
-// One Harley-Seal step shared by the dense folds (K1, K9): 16 postings rows
-// x[0..15] go through the carry-save adder tree into the ones / twos / fours
-// / eights tiers, and the weight-16 carry ripples into the NH binary planes.
+// One Harley-Seal step shared by the folds (K1, K2, K9, K10): 16 postings
+// rows x[0..15] go through the carry-save adder tree into the ones / twos /
+// fours / eights tiers, and the weight-16 carry ripples into the NH binary
+// planes.
 template <int NH>
 __device__ __forceinline__ void rx_hs_fold16(uint4& ones, uint4& twos,
                                              uint4& fours, uint4& eights,

@@ -383,8 +383,8 @@ class DeviceClassifier:
 
         The pair budget is the work crossover against the dense fold;
         exceeding it once flips the engine to the dense kernel for good —
-        conserved-marker k-mers that post in every block would pay the
-        ripple fold's higher per-word cost for no traffic win."""
+        conserved-marker k-mers that post in every block would pay the pair
+        lists and their regroup for no traffic win."""
         st = self.state
         S = int(st.kmer_major3.shape[1])
         budget = max(SPARSE_BUDGET_MIN, k_pad * S // SPARSE_CROSSOVER_DIV)

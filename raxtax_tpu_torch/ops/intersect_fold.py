@@ -25,12 +25,14 @@ K2, the block-sparse fold (:func:`fold_planes_sparse`), CUDA kernel
 the (k-mer, 8 x 128-word block) pairs that hold postings — the blockwise
 image of an inverted-index walk — and yields the same planes as K1, bit for
 bit. Bound: bytes, the batch's distinct pairs ``* 4 KB`` read plus the
-planes written. The TPU
-kernel holds one query's whole accumulator on chip; here the wrapper groups
-each query's pairs by block and one CTA owns one (query, block) with its
-planes in registers. The TPU limits around that kernel (the sub-batch split
-``fold_max`` and the scalar-prefetch size check) belong to its compiler and
-are not carried over.
+planes written. The TPU kernel holds one query's whole accumulator on chip
+and ripples each pair into it at the pair's own block; here the wrapper
+groups each query's pairs by block (:func:`group_pairs_by_block`), and the
+kernel is K1 with another row list: a CTA owns a 512-byte slice of one
+block of one query and folds that block's k-mers with K1's ring and adder
+tree (``csrc/fold_ring.cuh``). The TPU limits around that kernel (the
+sub-batch split ``fold_max`` and the scalar-prefetch size check) belong to
+its compiler and are not carried over.
 
 K9, the gathered-rows fold (:func:`fold_planes_gathered`), CUDA kernel
 ``csrc/fold_rows.cu`` (``rx_fold_rows``), replaces the TPU kernel
@@ -366,12 +368,14 @@ def group_pairs_by_block(
     int32, blk_off [B, n_blocks + 1] int32)`` with block ``j`` of query
     ``b`` at ``kmer_by_blk[b, blk_off[b, j]:blk_off[b, j + 1]]``. Padding
     pairs sort behind the last block. The count does not depend on the order
-    of the adds, so the sort need not be stable."""
+    of the adds; the sort is stable so that a block keeps its k-mers in
+    ascending order, and the kernel's CTAs of different queries walk shared
+    rows in step (L2 reuse)."""
     B, p_pad = pair_kmer.shape
     dev = pair_kmer.device
     slot = torch.arange(p_pad, device=dev)[None, :]
     key = torch.where(slot < totals[:, None], pair_blk, n_blocks)
-    key, order = torch.sort(key, dim=1)
+    key, order = torch.sort(key, dim=1, stable=True)
     kmer_by_blk = torch.gather(pair_kmer, 1, order)
     bounds = torch.arange(n_blocks + 1, dtype=key.dtype, device=dev)
     blk_off = torch.searchsorted(key, bounds[None, :].expand(B, -1).contiguous())

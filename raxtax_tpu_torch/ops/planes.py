@@ -9,9 +9,12 @@ the dense count matrix never exists on the main path.
 - :func:`planes_histogram` — K3, CUDA kernel ``csrc/planes_hist.cu``
   (``rx_planes_hist``). Replaces the TPU kernel ``_hist_kernel``
   (``ops/planes.py`` of the JAX package: ``planes_histogram``), which ANDs
-  the planes once per possible value for want of a scatter; the GPU kernel
-  decodes each tip and adds into a shared-memory histogram with integer
-  atomics (exact in any order). Bound: bytes, the planes are read once.
+  the planes once per possible value for want of a scatter. The GPU kernel
+  counts the tips below 16 that way over the four low planes only (16
+  minterm popcounts into register counters, no atomics) and decodes only
+  the tips of 16 or more, into a shared-memory histogram with warp-
+  aggregated integer atomics (exact in any order). Bound: bytes, the planes
+  are read once.
 - :func:`planes_probs` — K4, CUDA kernel ``csrc/planes_probs.cu``
   (``rx_planes_probs``). Replaces the TPU kernel ``_probs_kernel``
   (``planes_probs`` of the JAX package), a select tree run once per u32 half

@@ -1,32 +1,38 @@
-"""Designs of K1, K5, K10 and K6/K7 against each other, in turns, in one
-process.
+"""Designs of K1, K2, K3, K5, K10 and K6/K7 against each other, in turns,
+in one process.
 
     python -m raxtax_tpu_torch.tools.kernel_ab --other DIR [--other DIR2 ...]
-        [--refs 1000000] [--rounds 2] [--cases fold_stream,dd_cumsum,...]
+        [--refs 1000000] [--rounds 2] [--cases fold_sparse,planes_hist,...]
         [--groups 1,2]
 
-``DIR`` holds other sources of ``fold_planes.cu``, ``exact_cumsum.cu``,
-``fold_stream.cu`` and ``dd_cumsum.cu`` (with the ``*.cuh`` headers they
-include), for example the csrc directory of an earlier commit unpacked with
-``git archive``. They must export the package's C entry points with the
-package's argument lists (``rx_dd_cumsum_scratch_words`` too): a design
-whose entry differs is given a wrapper in its own copy. Each design is built
-by ``ops/_build.build_all`` into a directory of its own under the package's
-build directory, with the package's ``nvcc`` flags, and bound with the
-argument types of the package's wrappers. The inputs are those of
-``chip_smoke.py``'s ``kernels`` phase (``tools/kernel_batch.py``): the
-synthetic world at ``--refs`` references, one batch of 256 queries, K1's
-planes, the pair lists of ``build_pairs``, and, from K3 and the host model,
-K4's tip probabilities in f64 (K5) and f32 (K6 tip order, K7 bit-major).
-K10 also runs on a second batch whose queries all come from one family
-(``kernel_batch.family_queries``: most rows shared within a group), at
-every group size of ``--groups``. Every design's output must be bit-equal
-to the package's (K10's to K1's planes of the batch); then each case is
-timed by CUDA events (mean of ``REPS`` launches after a warm-up) with the
-designs in the order package, others, others reversed, package,
-``--rounds`` times. Prints one JSON line with every turn's time, the median
-and ``bound_share`` per design, each library's registers and spills from
-``-Xptxas -v``, every case's bounds and K5's chain floor
+``DIR`` holds other sources of ``fold_planes.cu``, ``fold_sparse.cu``,
+``planes_hist.cu``, ``exact_cumsum.cu``, ``fold_stream.cu`` and
+``dd_cumsum.cu`` (with the ``*.cuh`` headers they include), for example the
+csrc directory of an earlier commit unpacked with ``git archive``. They
+must export the package's C entry points with the package's argument lists
+(``rx_dd_cumsum_scratch_words`` too): a design whose entry differs is given
+a wrapper in its own copy. Each design is built by ``ops/_build.build_all``
+into a directory of its own under the package's build directory, with the
+package's ``nvcc`` flags, and bound with the argument types of the
+package's wrappers. The inputs are those of ``chip_smoke.py``'s ``kernels``
+phase (``tools/kernel_batch.py``): the synthetic world at ``--refs``
+references with the sparse fold's block-padded matrix, one batch of 256
+queries, K1's planes, K2's ``build_pairs`` lists with the pair budget
+lifted (regrouped by ``group_pairs_by_block``; the line says whether the
+engine's budget holds them), K10's pair lists of ``build_pairs``, and, from
+K3 and the host model, K4's tip probabilities in f64 (K5) and f32 (K6 tip
+order, K7 bit-major). K10 and K3 also run on a second batch whose queries
+all come from one family (``kernel_batch.family_queries``: most rows shared
+within a group), K10 at every group size of ``--groups``; K3 also on its two
+extremes at the same shape, random planes (nearly every tip counts 16 or
+more) and planes that spell one count at every tip. Every design's output
+must be bit-equal to the package's (K2's and K10's to K1's planes of the
+batch); then each case is timed by CUDA events (mean of ``REPS`` launches
+after a warm-up) with the designs in the order package, others, others
+reversed, package, ``--rounds`` times.
+Prints one JSON line with every turn's time, the median and
+``bound_share`` per design, each library's registers and spills from
+``-Xptxas -v``, every case's bounds, K2's regroup time and K5's chain floor
 (``kernel_batch.dadd_latency``). Needs a GPU. Another kernel joins by
 entries in ``KERNELS`` and ``CASES`` and its launch in ``main``'s ``run``.
 """
@@ -40,13 +46,17 @@ import re
 import statistics
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 #: the kernel sources: stem -> C entry (argument types from the wrapper's
 #: module, so a design is called exactly as the package calls its own)
-KERNELS = {"fold_planes": "rx_fold_planes", "exact_cumsum": "rx_exact_cumsum",
+KERNELS = {"fold_planes": "rx_fold_planes",
+           "fold_sparse": "rx_fold_planes_sparse",
+           "planes_hist": "rx_planes_hist", "exact_cumsum": "rx_exact_cumsum",
            "fold_stream": "rx_fold_stream", "dd_cumsum": "rx_dd_cumsum"}
 #: the timed cases: name -> source stem (K7 is the bit-major form of K6)
-CASES = {"fold_planes": "fold_planes", "exact_cumsum": "exact_cumsum",
+CASES = {"fold_planes": "fold_planes", "fold_sparse": "fold_sparse",
+         "planes_hist": "planes_hist", "exact_cumsum": "exact_cumsum",
          "fold_stream": "fold_stream", "dd_cumsum": "dd_cumsum",
          "dd_cumsum_bitmajor": "dd_cumsum"}
 BATCH = 256  # queries, as in chip_smoke.py's kernels phase
@@ -57,6 +67,8 @@ def package_argtypes(stem: str) -> list:
     from ..ops import exactscan, intersect_fold, intersect_stream, planes
 
     return {"fold_planes": intersect_fold._ARGTYPES,
+            "fold_sparse": intersect_fold._SPARSE_ARGTYPES,
+            "planes_hist": planes._HIST_ARGTYPES,
             "exact_cumsum": exactscan._ARGTYPES,
             "fold_stream": intersect_stream._STREAM_ARGTYPES,
             "dd_cumsum": planes._DD_ARGTYPES}[stem]
@@ -137,15 +149,20 @@ def main(argv=None) -> int:
         ap.error(f"--cases: one of {', '.join(CASES)}")
     groups = [int(g) for g in a.groups.split(",") if g]
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 1
-    from ..engine.device import DeviceClassifier
-    from ..ops import _build, intersect_stream as st, planes as pl
+    from ..engine.device import (
+        SPARSE_BUDGET_MIN,
+        SPARSE_CROSSOVER_DIV,
+        DeviceClassifier,
+    )
+    from ..ops import _build, intersect_fold as fo, intersect_stream as st
+    from ..ops import planes as pl
     from ..ops.exactscan import exact_cumsum
-    from ..ops.intersect_fold import fold_planes
     from .kernel_batch import (
         batch_inputs,
         batch_probs32,
@@ -154,8 +171,11 @@ def main(argv=None) -> int:
         exact_cumsum_bounds,
         family_queries,
         fold_planes_bounds,
+        fold_sparse_bounds,
         fold_stream_bounds,
         group_row_loads,
+        planes_hist_bounds,
+        tail_tips,
     )
     from .profile_path import gpu_line
     from .profile_stages import host_tables
@@ -173,21 +193,51 @@ def main(argv=None) -> int:
             usage[f"{label}:{stem}"] = use[stem]
 
     db, queries, _ = build_world(a.refs, B)
-    clf = DeviceClassifier.create(db, batch_size=B, device=dev)
+    # the sparse fold's block-padded matrix; every fold reads it (at 65,536
+    # and 1M references it is the dense fold's matrix too)
+    clf = DeviceClassifier.create(db, batch_size=B, device=dev, fold="sparse")
     km3 = clf.state.kmer_major3
-    kmer_idx, ks, k_pad, s_max, flat_k, off_k = batch_inputs(queries, B)
-    d_idx = torch.from_numpy(kmer_idx).to(dev)
-    d_ks = torch.from_numpy(ks).to(dev)
-    planes = fold_planes(d_idx, d_ks, km3, max_count=k_pad)
-    P = int(planes.shape[1])
     S, W = int(km3.shape[1]), int(km3.shape[1] * km3.shape[2])
-    hist = pl.planes_histogram(planes, s_max, db.num_tips)
-    tab = torch.from_numpy(host_tables(hist, ks, s_max)).to(dev)
+
+    def batch_of(qs) -> SimpleNamespace:
+        idx, ks, k_pad, s_max, flat, off = batch_inputs(qs, B)
+        d_idx = torch.from_numpy(idx).to(dev)
+        planes = fo.fold_planes(d_idx, torch.from_numpy(ks).to(dev), km3,
+                                max_count=k_pad)
+        return SimpleNamespace(idx=idx, ks=ks, k_pad=k_pad, s_max=s_max,
+                               flat=flat, off=off, d_idx=d_idx, planes=planes,
+                               n_tips=db.num_tips)
+
+    # the world's batch (one query per family) and, for K10 and K3, one
+    # family's
+    batches = {"world": batch_of(queries)}
+    if {"fold_stream", "planes_hist"} & set(cases):
+        batches["family"] = batch_of(family_queries(B))
+    wb = batches["world"]
+    d_ks = torch.from_numpy(wb.ks).to(dev)
+    planes = wb.planes
+    P = int(planes.shape[1])
+    if "planes_hist" in cases:
+        # K3's two extremes at the world batch's shape, without pad tips:
+        # random planes (nearly every tip 16 or more, the counts spread;
+        # s_max = 2^P keeps them all) and planes that spell one count, 300,
+        # at every tip (every tip in the tail, all on one bucket)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rand = torch.randint(-(2**31), 2**31, tuple(planes.shape),
+                             dtype=torch.int32, device=dev, generator=gen)
+        one = torch.zeros_like(planes)
+        one[:, [q for q in range(P) if (300 >> q) & 1]] = -1
+        batches["random"] = SimpleNamespace(planes=rand, s_max=1 << P,
+                                            n_tips=W * 32, k_pad=None)
+        batches["one_count"] = SimpleNamespace(planes=one, s_max=wb.s_max,
+                                               n_tips=W * 32, k_pad=None)
+    hist = pl.planes_histogram(planes, wb.s_max, db.num_tips)
+    tab = torch.from_numpy(host_tables(hist, wb.ks, wb.s_max)).to(dev)
     p = pl.planes_probs(planes, tab).reshape(B, -1).contiguous()
     N = int(p.shape[1])
     cum = exact_cumsum(p) if "exact_cumsum" in cases else None
     del tab
-    probs32 = batch_probs32(planes, hist, ks, s_max)  # [B, 32, S, 128]
+    probs32 = batch_probs32(planes, hist, wb.ks, wb.s_max)  # [B, 32, S, 128]
     flat32 = probs32.reshape(B, -1)  # tip order of the flat layout
     want = {}
     if "dd_cumsum" in cases:
@@ -195,22 +245,31 @@ def main(argv=None) -> int:
     if "dd_cumsum_bitmajor" in cases:
         want["dd_cumsum_bitmajor"] = tuple(
             t[:, 1:] for t in pl.dd_cumsum_bitmajor(probs32))
-    # K10's two batches: the world's (one query per family) and one family's
-    stream_batches = {"world": (kmer_idx, ks, k_pad, flat_k, off_k, d_idx,
-                                planes)}
-    if "fold_stream" in cases:
-        f_idx, f_ks, f_pad, _, f_flat, f_off = batch_inputs(
-            family_queries(B), B)
-        d_f_idx = torch.from_numpy(f_idx).to(dev)
-        f_planes = fold_planes(d_f_idx, torch.from_numpy(f_ks).to(dev), km3,
-                               max_count=f_pad)
-        stream_batches["family"] = (f_idx, f_ks, f_pad, f_flat, f_off,
-                                    d_f_idx, f_planes)
+    sparse = None
+    if "fold_sparse" in cases:
+        # the budget lifted, as chip_smoke.py's fold_compare lifts it
+        pk, pb, max_pairs, totals = fo.build_pairs(
+            wb.idx, clf.state.blk_ptr, clf.state.blk_ids, budget=1 << 40)
+        d_pk, d_pb = torch.from_numpy(pk).to(dev), torch.from_numpy(pb).to(dev)
+        d_tot = torch.from_numpy(totals.astype(np.int32)).to(dev)
+
+        def regroup():
+            return fo.group_pairs_by_block(d_pk, d_pb, d_tot,
+                                           S // fo.BLOCK_SUB)
+
+        kb, blk_off = regroup()
+        budget = max(SPARSE_BUDGET_MIN, wb.k_pad * S // SPARSE_CROSSOVER_DIV)
+        sparse = SimpleNamespace(
+            kb=kb, blk_off=blk_off, p_pad=int(pk.shape[1]),
+            bounds=fold_sparse_bounds(pk, pb, totals, W, P),
+            info={"pairs_per_query_max": max_pairs, "engine_budget": budget,
+                  "within_engine_budget": max_pairs <= budget,
+                  "regroup_ms": mean_ms(regroup, REPS)})
     pair_cache = {}
 
     def pairs_for(batch: str, group: int):
         if (batch, group) not in pair_cache:
-            q, r, lo, hi = st.build_pairs(stream_batches[batch][5], group)
+            q, r, lo, hi = st.build_pairs(batches[batch].d_idx, group)
             pair_cache[batch, group] = (((q % group) << st.ROW_BITS) | r, lo, hi)
         return pair_cache[batch, group]
 
@@ -218,11 +277,19 @@ def main(argv=None) -> int:
 
     def run_stream(label: str, batch: str, group: int):
         packed, lo, hi = pairs_for(batch, group)
-        ref = stream_batches[batch][6]
+        ref = batches[batch].planes
         out = torch.empty_like(ref)
         code = fns[label, "fold_stream"](
             packed.data_ptr(), lo.data_ptr(), hi.data_ptr(), km3.data_ptr(),
             out.data_ptr(), B, int(ref.shape[1]), W, group, stream)
+        return code, out
+
+    def run_hist(label: str, batch: str):
+        bt = batches[batch]
+        out = torch.zeros((B, bt.s_max), dtype=torch.int32, device=dev)
+        code = fns[label, "planes_hist"](
+            bt.planes.data_ptr(), out.data_ptr(), B, int(bt.planes.shape[1]),
+            W, bt.s_max, bt.n_tips, stream)
         return code, out
 
     def run_dd(label: str, x, rows: int, bitmajor: bool):
@@ -241,9 +308,17 @@ def main(argv=None) -> int:
             group: int = st.stream_group_size(B, P)):
         if case == "fold_planes":
             out = torch.empty_like(planes)
-            code = fns[label, case](d_idx.data_ptr(), d_ks.data_ptr(),
-                                    km3.data_ptr(), out.data_ptr(), B, k_pad,
-                                    W, P - 4, stream)
+            code = fns[label, case](wb.d_idx.data_ptr(), d_ks.data_ptr(),
+                                    km3.data_ptr(), out.data_ptr(), B,
+                                    wb.k_pad, W, P - 4, stream)
+        elif case == "fold_sparse":
+            out = torch.empty_like(planes)
+            code = fns[label, case](sparse.kb.data_ptr(),
+                                    sparse.blk_off.data_ptr(), km3.data_ptr(),
+                                    out.data_ptr(), B, sparse.p_pad, W, P,
+                                    stream)
+        elif case == "planes_hist":
+            code, out = run_hist(label, batch)
         elif case == "exact_cumsum":
             out = torch.empty_like(cum)
             code = fns[label, case](p.data_ptr(), out.data_ptr(), B, N, stream)
@@ -267,78 +342,102 @@ def main(argv=None) -> int:
             x, y = x.view(it), y.view(it)
         return bool(torch.equal(x, y))
 
-    refs = {"fold_planes": planes, "exact_cumsum": cum, **want}
-    # every K10 variant: (batch, group)
-    variants = [(b, g) for b in stream_batches for g in groups] \
-        if "fold_stream" in cases else []
+    # every timed key: (case,), (case, batch) or ("fold_stream", batch, group)
+    keys = []
+    for case in cases:
+        if case == "fold_stream":
+            keys += [(case, b, g) for b in ("world", "family") for g in groups]
+        elif case == "planes_hist":
+            keys += [(case, b) for b in batches]
+        else:
+            keys.append((case,))
+
+    def reference(key):
+        case, batch = key[0], key[1] if len(key) > 1 else "world"
+        if case in ("fold_planes", "fold_sparse", "fold_stream"):
+            return batches[batch].planes  # K1's planes of the batch
+        if case == "planes_hist":
+            bt = batches[batch]
+            return pl.planes_histogram(bt.planes, bt.s_max, bt.n_tips)
+        return cum if case == "exact_cumsum" else want[case]
+
     for label in designs:
-        for case in cases:
-            if case == "fold_stream":
-                continue
-            if not same(run(label, case), refs[case]):
-                raise AssertionError(f"{label}: {case} differs from the package's")
-        for batch, group in variants:
-            if not same(run(label, "fold_stream", batch, group),
-                        stream_batches[batch][6]):
+        for key in keys:
+            if not same(run(label, *key), reference(key)):
                 raise AssertionError(
-                    f"{label}: fold_stream, {batch} batch, groups of {group}, "
-                    "differs from K1's planes")
+                    f"{label}: {key} differs from the package's")
     del clf
 
     labels = list(designs)
     order = labels + labels[1:][::-1] + labels[:1]
-    keys = [c for c in cases if c != "fold_stream"] + variants
     turns = {key: {l: [] for l in labels} for key in keys}
     for _ in range(a.rounds):
         for key in keys:
-            args = ("fold_stream", *key) if isinstance(key, tuple) else (key,)
             for label in order:
                 turns[key][label].append(
-                    mean_ms(lambda: run(label, *args), REPS))
+                    mean_ms(lambda: run(label, *key), REPS))
 
     group = st.stream_group_size(B, P)
-    bounds = {
-        "fold_planes": fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W, P),
-        "exact_cumsum": exact_cumsum_bounds(B, N),
-        "dd_cumsum": dd_cumsum_bounds(B, N),
-        "dd_cumsum_bitmajor": dd_cumsum_bounds(B, N),
-    }
-    for batch, g in variants:
-        idx_b, ks_b, pad_b, flat_b, off_b, _, planes_b = stream_batches[batch]
-        bounds[batch, g] = {
-            **fold_stream_bounds(idx_b, ks_b, flat_b, off_b, W,
-                                 int(planes_b.shape[1]), B * pad_b, -(-B // g)),
-            "row_loads": group_row_loads(idx_b, ks_b, g),
+
+    def bounds_of(key) -> dict:
+        case = key[0]
+        bt = batches[key[1] if len(key) > 1 else "world"]
+        if case == "fold_planes":
+            return fold_planes_bounds(bt.idx, bt.ks, bt.flat, bt.off, W, P)
+        if case == "fold_sparse":
+            return {**sparse.bounds, **sparse.info}
+        if case == "planes_hist":
+            return planes_hist_bounds(B, int(bt.planes.shape[1]), W, bt.s_max,
+                                      tail_tips(bt.planes))
+        if case == "exact_cumsum":
+            return exact_cumsum_bounds(B, N)
+        if case in ("dd_cumsum", "dd_cumsum_bitmajor"):
+            return dd_cumsum_bounds(B, N)
+        g = key[2]
+        return {
+            **fold_stream_bounds(bt.idx, bt.ks, bt.flat, bt.off, W,
+                                 int(bt.planes.shape[1]), B * bt.k_pad,
+                                 -(-B // g)),
+            "row_loads": group_row_loads(bt.idx, bt.ks, g),
         }
+
     shapes = {
-        "fold_planes": {"B": B, "k_pad": k_pad, "W": W, "P": P, "S": S},
+        "fold_planes": {"B": B, "k_pad": wb.k_pad, "W": W, "P": P, "S": S},
+        "fold_sparse": {"B": B, "W": W, "P": P,
+                        "blocks": S // fo.BLOCK_SUB,
+                        "p_pad": sparse.p_pad if sparse else None},
+        "planes_hist": {"B": B, "W": W},
         "exact_cumsum": {"B": B, "N": N},
         "dd_cumsum": {"B": B, "N": N, "tile_rows": pl.DD_TILE_ROWS},
         "dd_cumsum_bitmajor": {"B": B, "N": N,
                                "tile_rows": pl.DD_TILE_ROWS_BITMAJOR},
+        "fold_stream": {"B": B, "W": W, "slice_bytes": 512,
+                        "engine_group": group},
     }
     line = {"gpu": gpu_line(), "refs": a.refs, "batch": B, "order": order,
             "reps": REPS, "rounds": a.rounds, "bits_equal": True}
 
     def summary(key) -> dict:
         med = {l: statistics.median(v) for l, v in turns[key].items()}
-        return {**bounds[key], "turns_ms": turns[key], "median_ms": med,
-                "bound_share": {l: bounds[key]["bound_ms"] / m
-                                for l, m in med.items()}}
+        b = bounds_of(key)
+        return {**b, "turns_ms": turns[key], "median_ms": med,
+                "bound_share": {l: b["bound_ms"] / m for l, m in med.items()}}
 
     for case in cases:
-        if case != "fold_stream":
-            line[case] = {"shape": shapes[case], **summary(case)}
-    if variants:
-        # one entry per batch and group; the engine's group on the world's
-        # batch is the case's headline
-        line["fold_stream"] = {
-            "shape": {"B": B, "W": W, "slice_bytes": 512, "engine_group": group},
-            **{f"{b}, groups of {g}": {"k_pad": stream_batches[b][2],
-                                       "P": int(stream_batches[b][6].shape[1]),
-                                       **summary((b, g))}
-               for b, g in variants},
-        }
+        mine = [k for k in keys if k[0] == case]
+        if len(mine[0]) == 1:
+            line[case] = {"shape": shapes[case], **summary(mine[0])}
+            continue
+        # one entry per batch (and K10's group); the engine's group on the
+        # world's batch is K10's headline
+        entries = {}
+        for key in mine:
+            bt = batches[key[1]]
+            name = key[1] if len(key) == 2 else f"{key[1]}, groups of {key[2]}"
+            entries[name] = {"k_pad": bt.k_pad, "s_max": bt.s_max,
+                             "num_tips": bt.n_tips,
+                             "P": int(bt.planes.shape[1]), **summary(key)}
+        line[case] = {"shape": shapes[case], **entries}
     if "exact_cumsum" in cases:
         lat = dadd_latency(dev)
         med = line["exact_cumsum"]["median_ms"]

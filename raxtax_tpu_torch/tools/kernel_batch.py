@@ -1,7 +1,7 @@
-"""One batch of queries at the kernels' shapes, and the bounds of K1, K5,
-K10 and K6/K7 on it: shared by ``chip_smoke.py``'s ``kernels`` phase and
-``tools/kernel_ab.py``, so both time the same inputs against the same
-bounds.
+"""One batch of queries at the kernels' shapes, and the bounds of K1, K2,
+K3, K5, K10 and K6/K7 on it: shared by ``chip_smoke.py``'s ``kernels``
+phase and ``tools/kernel_ab.py``, so both time the same inputs against the
+same bounds.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of the bytes it must move over the memory rate and the operations it
@@ -92,6 +92,66 @@ def fold_planes_bounds(kmer_idx, ks, flat_k, off_k, W: int, P: int) -> dict:
         **bound(once / PEAK_BYTES_PER_S, rows * W * 6 / PEAK_INT32_OPS),
         "stream_bound_ms": (rows * W * 4 + out_bytes) / PEAK_BYTES_PER_S * 1e3,
         "rows_folded": rows, "unique_rows": uniq,
+    }
+
+
+def fold_sparse_bounds(pair_kmer, pair_blk, totals, W: int, P: int) -> dict:
+    """K2 on one batch of ``build_pairs`` lists: every distinct (k-mer,
+    block) pair's 4 KB sub-row read once, the planes written and the pair
+    lists read; ``stream_bound_ms`` streams every pair's sub-row, no reuse
+    between queries. The carry-save adder tree takes about 6 operations a
+    word, as in K1."""
+    from ..ops.intersect_fold import BLOCK_WORDS
+
+    B, p_pad = pair_kmer.shape
+    valid = np.arange(p_pad)[None, :] < totals[:, None]
+    pairs = int(totals.sum())
+    uniq = int(np.unique(pair_kmer[valid].astype(np.int64) * (W // BLOCK_WORDS)
+                         + pair_blk[valid]).size)
+    out_bytes = B * P * W * 4
+    lists = pair_kmer.nbytes + pair_blk.nbytes + totals.size * 4
+    once = uniq * BLOCK_WORDS * 4 + out_bytes + lists
+    return {
+        **bound(once / PEAK_BYTES_PER_S,
+                pairs * BLOCK_WORDS * 6 / PEAK_INT32_OPS),
+        "stream_bound_ms": (pairs * BLOCK_WORDS * 4 + out_bytes + lists)
+        / PEAK_BYTES_PER_S * 1e3,
+        "pairs": pairs, "unique_pairs": uniq,
+    }
+
+
+def tail_tips(planes) -> int:
+    """Tips of a ``[B, P, S, 128]`` planes batch whose count is 16 or more
+    (a bit set in planes 4..P-1): the ones K3 decodes one by one."""
+    import torch
+
+    if planes.shape[1] <= 4:
+        return 0
+    hi = planes[:, 4].clone()
+    for p in range(5, planes.shape[1]):
+        hi |= planes[:, p]
+    # popcount of each 32-bit pattern, in int64 so no step overflows
+    x = hi.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return int((((x * 0x01010101) >> 24) & 0xFF).sum().item())
+
+
+def planes_hist_bounds(B: int, P: int, W: int, s_max: int,
+                       n_tail: int) -> dict:
+    """K3 on one batch: the planes read once and the histogram written.
+    Beside them the operations of the kernel's design (``csrc/
+    planes_hist.cu``): P + 59 a word (the ORs of the high planes, the
+    16-minterm tree, 16 popcounts and adds) and 3 P + 1 for each of the
+    ``n_tail`` tips of 16 or more, decoded one by one; ``tail_share`` is
+    their share of the tips."""
+    ops = B * W * (P + 59) + n_tail * (3 * P + 1)
+    return {
+        **bound((B * P * W * 4 + B * s_max * 4) / PEAK_BYTES_PER_S,
+                ops / PEAK_INT32_OPS),
+        "ops_ms": ops / PEAK_INT32_OPS * 1e3,
+        "tail_tips": n_tail, "tail_share": n_tail / (B * W * 32),
     }
 
 

@@ -173,6 +173,127 @@ def test_sparse_fold_kernel_equals_plain_and_dense(cuda):
     assert torch.equal(got, dense)
 
 
+@pytest.mark.parametrize("n_blocks,max_count,n_planes",
+                         [(1, 31, 5), (3, 1000, 10), (2, 40_000, 16)])
+def test_sparse_fold_kernel_stage_edges_equal_plain_and_dense(
+        cuda, n_blocks, max_count, n_planes):
+    """K2 at one block (W = 1,024 words) and more, at 5, 10 and 16 planes:
+    queries with 0 pairs and with 1, 15, 16, 17 and 33 pairs in their one
+    block (the edges of a 16-row stage and of the three-stage ring; the
+    other blocks have no pair), and a query whose 33 k-mers post in random
+    blocks. Bit-equal to the plain version and to K1 on the same k-mers."""
+    from raxtax_tpu_torch.ops import intersect_fold as tf
+
+    rng = np.random.default_rng(30 + n_blocks)
+    W = n_blocks * tf.BLOCK_WORDS
+    counts = [0, 1, 15, 16, 17, 33, 33]
+    ids = rng.choice(65536, sum(counts), replace=False)
+    idx = np.full((len(counts), 48), 65536, np.int32)
+    nz = np.zeros((65537, n_blocks), bool)
+    rows = np.zeros((len(ids), W), np.uint32)
+    o = 0
+    for b, k in enumerate(counts):
+        idx[b, :k] = np.sort(ids[o : o + k])
+        for i in range(o, o + k):
+            blocks = ([b % n_blocks] if b < len(counts) - 1 else
+                      rng.choice(n_blocks, rng.integers(1, n_blocks + 1),
+                                 replace=False))
+            for blk in blocks:
+                pos = blk * tf.BLOCK_WORDS + rng.choice(tf.BLOCK_WORDS, 200,
+                                                        replace=False)
+                rows[i, pos] = rng.integers(
+                    1, 2**32, 200, dtype=np.uint64).astype(np.uint32)
+            nz[ids[i], blocks] = True
+        o += k
+    blk_ptr = np.zeros(65538, np.int64)
+    np.cumsum(nz.sum(axis=1), out=blk_ptr[1:])
+    blk_ids = np.nonzero(nz)[1].astype(np.int32)
+    km = torch.zeros((65537, W), dtype=torch.int32, device=cuda)
+    km[torch.from_numpy(ids).to(cuda)] = torch.from_numpy(rows.view(np.int32)).to(cuda)
+    km3 = km.reshape(65537, -1, 128)
+    pair_kmer, pair_blk, _, totals = tf.build_pairs(idx, blk_ptr, blk_ids, 1 << 20)
+    args = [torch.from_numpy(pair_kmer).to(cuda), torch.from_numpy(pair_blk).to(cuda),
+            torch.from_numpy(totals.astype(np.int32)).to(cuda), km3]
+    got = tf.fold_planes_sparse(*args, max_count=max_count)
+    assert got.shape == (len(counts), n_planes, W // 128, 128)
+    assert torch.equal(got, tf.fold_planes_sparse_plain(*args, n_planes))
+    dense = tf.fold_planes(
+        torch.from_numpy(idx).to(cuda),
+        torch.from_numpy(np.array(counts, np.int32)).to(cuda), km3,
+        max_count=max_count,
+    )
+    assert torch.equal(got, dense)
+    assert not got[0].any()
+
+
+def _planes_of_counts(counts, P):
+    """``[B, P, S, 128]`` int32 planes that spell ``counts`` ``[B, S * 128 *
+    32]`` in the packed tip order (tip = word * 32 + bit)."""
+    B, n = counts.shape
+    c = counts.reshape(B, n // 32, 32).astype(np.uint64)
+    bits = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    planes = np.stack(
+        [(((c >> np.uint64(p)) & np.uint64(1)) * bits).sum(axis=2)
+         for p in range(P)], axis=1).astype(np.uint32)
+    return torch.from_numpy(planes.view(np.int32).reshape(B, P, -1, 128))
+
+
+@pytest.mark.parametrize("P", [1, 4, 5, 10, 24])
+@pytest.mark.parametrize("s_max", [8, 16, 17, 512, 13_000])
+def test_hist_kernel_low_counts_tail_and_s_max_equal_plain(cuda, P, s_max):
+    """K3 bit for bit against its plain version at every plane count it
+    compiles for and at s_max below, at and past 16, at the path's 512 and
+    past the shared-memory histogram (13,000): counts mostly below 16, a
+    tail of larger ones, counts past s_max (dropped), a query of all-zero
+    planes, a query whose tips are all 16 or more, and 77 pad tips. The row
+    (S = 17) ends in a partly filled CTA."""
+    from raxtax_tpu_torch.ops import planes as pl
+
+    rng = np.random.default_rng(40 + P)
+    top = (1 << P) - 1
+    B, S = 5, 17
+    n = S * 128 * 32
+    counts = np.where(rng.random((B, n)) < 0.8, rng.integers(0, 16, (B, n)),
+                      rng.integers(16, 20_000, (B, n)))
+    counts = np.minimum(counts, top)
+    counts[1] = 0  # all-zero planes
+    if P > 4:
+        counts[2] = rng.integers(16, top + 1, n)  # every tip in the tail
+    num_tips = n - 77
+    counts[:, num_tips:] = 0
+    planes = _planes_of_counts(counts, P).to(cuda)
+    got = pl.planes_histogram(planes, s_max, num_tips)
+    want = pl.planes_histogram_plain(planes, s_max, num_tips)
+    assert torch.equal(got, want)
+    # the plain version is the histogram of the counts
+    ref = np.stack([np.bincount(c[:num_tips][c[:num_tips] < s_max],
+                                minlength=s_max) for c in counts])
+    np.testing.assert_array_equal(got.cpu().numpy(), ref)
+
+
+def test_hist_kernel_ragged_row_equals_plain(cuda):
+    """The C entry at a row length that is no multiple of 4 words (the
+    wrapper always passes whole 128-word rows): the planes past the row's
+    end are never read."""
+    from raxtax_tpu_torch.ops import _build, planes as pl
+
+    rng = np.random.default_rng(50)
+    B, P, W = 3, 10, 2 * 2048 + 5
+    counts = np.minimum(rng.geometric(0.3, (B, W * 32)) - 1, 1023)
+    counts[:, -40:] = 0
+    num_tips = W * 32 - 40
+    padded = np.zeros((B, 33 * 128 * 32), np.int64)
+    padded[:, : W * 32] = counts
+    full = _planes_of_counts(padded, P).to(cuda)  # [B, P, 33, 128]
+    rows = full.reshape(B, P, -1)[:, :, :W].contiguous()
+    got = torch.zeros((B, 512), dtype=torch.int32, device=cuda)
+    fn = _build.entry("planes_hist", "rx_planes_hist", pl._HIST_ARGTYPES)
+    code = fn(rows.data_ptr(), got.data_ptr(), B, P, W, 512, num_tips,
+              torch.cuda.current_stream().cuda_stream)
+    _build.check("planes_hist", code, "planes_histogram")
+    assert torch.equal(got, pl.planes_histogram_plain(full, 512, num_tips))
+
+
 def test_high_counts_kernel_equals_plain(cuda):
     from raxtax_tpu_torch.ops import planes as pl
 

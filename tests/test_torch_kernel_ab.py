@@ -1,8 +1,9 @@
 """``tools/kernel_ab.py`` and ``tools/kernel_batch.py`` off the card: the
 reading of nvcc's resource report, the argument lists it binds every design
-with, the bounds of K1, K5, K10 and K6/K7, the one-family batch of K10, the
-plain version of the chain that measures K5's floor, and the A/B tool's
-refusal to run without a GPU (it has no CPU mode)."""
+with, the bounds of K1, K2, K3, K5, K10 and K6/K7, the count of K3's tail
+tips, the one-family batch of K10, the plain version of the chain that
+measures K5's floor, and the A/B tool's refusal to run without a GPU (it has
+no CPU mode)."""
 
 import math
 import re
@@ -130,3 +131,56 @@ def test_bounds_of_stream_fold_and_dd_scan():
         / 3.35e12 * 1e3
     assert (k10["unique_rows"], k10["rows_folded"]) == (4, 5)
     assert k10["stream_bound_ms"] == (5 * 4096 * 4 + out_bytes) / 3.35e12 * 1e3
+
+
+def test_bounds_of_sparse_fold():
+    """K2 reads each distinct (k-mer, block) sub-row once; the adder tree's
+    six operations a word, not a ripple's 2 P, are its operation term."""
+    # two queries over W = 2 blocks: (k-mer 3, block 0), (3, 1), (5, 1) and
+    # (3, 0), (9, 0): four distinct pairs of five; the pad slots do not count
+    pair_kmer = np.array([[3, 3, 5, 65536], [3, 9, 65536, 65536]], np.int32)
+    pair_blk = np.array([[0, 1, 1, 0], [0, 0, 0, 0]], np.int32)
+    totals = np.array([3, 2], np.int64)
+    k2 = kernel_batch.fold_sparse_bounds(pair_kmer, pair_blk, totals, W=2048, P=8)
+    assert (k2["pairs"], k2["unique_pairs"]) == (5, 4)
+    out_bytes = 2 * 8 * 2048 * 4
+    lists = 2 * (2 * 4 * 4) + 2 * 4
+    assert k2["bound_by"] == "bytes"
+    assert k2["bound_ms"] == (4 * 1024 * 4 + out_bytes + lists) / 3.35e12 * 1e3
+    assert k2["stream_bound_ms"] == (5 * 1024 * 4 + out_bytes + lists) \
+        / 3.35e12 * 1e3
+    # six operations a word of every pair: under the bytes' time
+    assert 5 * 1024 * 6 / 33.5e12 * 1e3 < k2["bound_ms"]
+
+
+def test_bounds_of_histogram():
+    """K3's bound is its bytes: the planes read once and the histogram
+    written; the operations of its design and the tail share beside."""
+    B, P, W, s_max = 256, 10, 31_744, 512
+    k3 = kernel_batch.planes_hist_bounds(B, P, W, s_max, n_tail=1000)
+    assert k3["bound_by"] == "bytes"
+    assert k3["bound_ms"] == (B * P * W * 4 + B * s_max * 4) / 3.35e12 * 1e3
+    assert k3["ops_ms"] == (B * W * (P + 59) + 1000 * (3 * P + 1)) \
+        / 33.5e12 * 1e3
+    assert k3["tail_tips"] == 1000
+    assert k3["tail_share"] == 1000 / (B * W * 32)
+    # nearly every tip in the tail: the one-by-one decode outweighs the bytes
+    heavy = kernel_batch.planes_hist_bounds(B, P, W, 1024, n_tail=B * W * 32)
+    assert heavy["bound_by"] == "operations"
+    assert heavy["bound_ms"] == heavy["ops_ms"]
+
+
+def test_tail_tips_counts_the_decoded_counts_of_16_or_more():
+    """The tips K3 decodes one by one: counts of 16 or more, read from the
+    planes as decode_counts_bitmajor reads them (sign bits included)."""
+    from raxtax_tpu_torch.ops.planes import decode_counts_bitmajor
+
+    rng = np.random.default_rng(11)
+    for P in (3, 5, 10):
+        planes = torch.from_numpy(
+            rng.integers(0, 2**32, size=(2, P, 3, 128), dtype=np.uint64)
+            .astype(np.uint32).view(np.int32))
+        planes[1, 4:] = 0  # a query with no tail
+        want = int((decode_counts_bitmajor(planes) >= 16).sum())
+        assert kernel_batch.tail_tips(planes) == want
+        assert (want == 0) == (P <= 4)
