@@ -33,12 +33,17 @@ It needs no arguments, no network and no JAX. It
    replays and whether the fold flipped to dense (``path_1m_dd``),
 8. drives the dense-count backend at that size for two batches, where its
    scan takes the pairwise tree (``path_1m_xla``),
-9. runs the software-f64 probes through ``tools/probe_f64.py``: K11 on
-   about 16.7M adversarial pairs against its plain version and against the
-   card's own f64 add and subtract, K12 at 256 queries over 65,536 and
-   1,048,576 tips against K5 on the same values (``probe_f64``),
-10. times K13's seven operation chains at 5,000,000 steps after holding their
-    bits against the plain version (``probe_ops``),
+9. times K13's seven operation chains at 5,000,000 steps after holding their
+   bits against the plain version, holds every chain at step counts around
+   its unrolled loop on whole-space words too, reads the chains' dependent
+   instructions from the SASS and the software add's latency for the
+   chains' floors (``probe_ops``),
+10. runs the software-f64 probes through ``tools/probe_f64.py``: K11 on
+    about 16.7M adversarial pairs against its plain version and against the
+    card's own f64 add and subtract, K12 at 256 queries over 65,536 and
+    1,048,576 tips against K5 on the same values, and both on whole-space
+    words against their plain versions, K12 at ragged tip counts
+    (``probe_f64``),
 11. fuzzes the engine against the oracle through ``tools/fuzz_hardware.py``
     for about a minute, at least 24 trials (``fuzz``),
 12. sweeps whole CLI runs through ``tools/runtime_memory.py`` on a synthetic
@@ -1215,19 +1220,87 @@ def phase_path_large(per_ref_s: float):
 PROBE_PAIRS = 17_000_000
 PROBE_ITERS = 5_000_000  # the TPU probe's step count
 PROBE_CHECK_ITERS = 256  # steps at which the chains meet their plain version
+#: K11's whole-space word pairs (K12's ragged shapes: phase_probe_f64)
+WORD_PAIRS = 1 << 20
 
 
-def phase_probe_f64():
+def phase_probe_ops():
+    """K13's seven chains through ``tools/probe_ops.py``, the SM clock
+    sampled while they run; then, outside the counted run, every chain at
+    the edges of its unrolled loop on the probe's state and on whole-space
+    words, its SASS, and the software add's latency (K12's floor):
+    ``(the phase's line, K13 entry, the SASS counts, the add's latency)``."""
+    from raxtax_tpu_torch.ops.opchain import CHAINS
+    from raxtax_tpu_torch.tools import probe_ops as po
+    from raxtax_tpu_torch.tools.kernel_batch import (
+        dependent_op_ns,
+        f64_add_latency,
+        op_chain_bounds,
+    )
+
+    dev = torch.device("cuda")
+    reset_counts()
+    with po.SmClock() as clock:
+        lines = [po.chain_line(c, dev, PROBE_ITERS, PROBE_CHECK_ITERS)
+                 for c in CHAINS]
+    counts = read_counts()
+    bad = [l["chain"] for l in lines if not l["bits_equal_plain"]]
+    if bad:
+        raise AssertionError(f"probe_ops: chains differ from the plain version: {bad}")
+    if counts["probe_op_chain"] < len(CHAINS):
+        raise AssertionError(f"probe_ops: launches {counts['probe_op_chain']}")
+    edges = po.edge_mismatches(dev)
+    if edges:
+        raise AssertionError(f"probe_ops: differ at the unroll edges: {edges}")
+    sass = po.chain_sass(po.library_sass("probe_ops"))
+    if set(sass) != set(CHAINS):
+        raise AssertionError(f"probe_ops: SASS loops of {sorted(sass)}")
+    lat = f64_add_latency(dev)
+    ns = {l["chain"]: l["ns_per_iter"] for l in lines}
+    ms = sum(l["ms"] for l in lines)
+    b = op_chain_bounds(sass, 8 * 128, PROBE_ITERS,
+                        dependent_op_ns(ns["u32_add_x1"], sass))
+    k13 = {
+        "name": "probe_op_chain", "route": "cuda",
+        "source": "raxtax_tpu_torch/csrc/probe_ops.cu",
+        "replaces": "scripts/probe_mosaic_perf.py:55",
+        "max_abs_err": 0.0,
+        # the seven chains, one launch each at PROBE_ITERS steps
+        "ms": ms,
+        # the plain version at PROBE_CHECK_ITERS steps (a torch loop)
+        "plain_ms": sum(l["plain_ms_host_clock"] for l in lines),
+        "plain_iters": PROBE_CHECK_ITERS,
+        **b, "bound_share": b["bound_ms"] / ms,
+        "chain_floor_share": b["chain_floor_ms"] / ms,
+        "library_ms": None, "iters": PROBE_ITERS, "ns_per_iter": ns,
+        "sm_clock_mhz": clock.mhz,
+        "dependent_op_cycles": (b["dependent_op_ns"] * clock.mhz * 1e-3
+                                if clock.mhz else None),
+        "sass": sass, "edge_iters_checked": list(po.EDGE_ITERS), **lat,
+    }
+    line = {"phase": "probe_ops", "chains": lines, "launches": counts,
+            "sm_clock_samples_mhz": clock.samples}
+    return line, k13, sass, lat
+
+
+def phase_probe_f64(sass: dict, lat: dict):
     """K11 and K12 through ``tools/probe_f64.py`` at its shapes, every check
-    bit for bit: ``(the phase's line, [K11 entry, K12 entry])``."""
-    from raxtax_tpu_torch.ops.exactf64 import OPS_PER_ADD, OPS_PER_SUB
+    bit for bit, then (outside the counted run) both on whole-space words,
+    K12 at ragged tip counts: ``(the phase's line, [K11 entry, K12
+    entry])``. ``sass`` and ``lat`` come from :func:`phase_probe_ops`."""
+    from raxtax_tpu_torch.ops.exactf64 import SCAN_TILE
     from raxtax_tpu_torch.tools import probe_f64 as pf
+    from raxtax_tpu_torch.tools import probe_ops as po
+    from raxtax_tpu_torch.tools.kernel_batch import probe_ew_bounds, probe_scan_bounds
 
     dev = torch.device("cuda")
     reset_counts()
     lines = pf.run(dev, PROBE_PAIRS, pf.SCRIPT_TIPS, BATCH,
                    plain_pairs=PROBE_PAIRS, plain_tips=512)
     counts = read_counts()
+    shapes = [(2, 1), (2, SCAN_TILE - 1), (2, SCAN_TILE + 1),
+              (1, 4 * SCAN_TILE + 3)]
+    lines.append(pf.check_words(dev, WORD_PAIRS, shapes, seed=8))
     for line in lines:
         if not pf.passed(line):
             raise AssertionError(f"probe_f64: {json.dumps(line)}")
@@ -1241,24 +1314,27 @@ def phase_probe_f64():
         if counts[k] < 2:
             raise AssertionError(f"probe_f64: {k} launched {counts[k]} times")
     n = ew["pairs"]
-    t_bytes = n * 32 / PEAK_BYTES_PER_S
-    t_ops = n * (OPS_PER_ADD + OPS_PER_SUB) / PEAK_INT32_OPS
+    ipp = po.ew_instructions_per_pair(po.library_sass("probe_f64"))
+    b11 = probe_ew_bounds(n, ipp)
     k11 = {
         "name": "probe_f64_ew", "route": "cuda",
         "source": "raxtax_tpu_torch/csrc/probe_f64.cu",
         "replaces": "scripts/probe_mosaic_f64.py:62",
         "max_abs_err": 0.0, "ms": ew["ms"], "plain_ms": ew["plain_ms_host_clock"],
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": ew["hardware_add_ms"],
-        "library": "torch add in float64 (a + b only; the card's f64 unit)",
+        **b11, "bound_share": b11["bound_ms"] / ew["ms"],
+        "instructions_per_pair": ipp,
+        # no single torch call computes c = a + b and d = c - b
+        "library_ms": None,
+        "torch_add_ms": ew["hardware_add_ms"],
+        "torch_add_sub_ms": ew["hardware_add_sub_ms"],
         "pairs": n, "bits_equal_hardware_f64": True,
+        "whole_space_pairs": WORD_PAIRS,
         "ms_8x128": next(l for l in lines if l["probe"] == "ew_8x128")["ms"],
     }
     big = scans[-1]
     B, N = big["B"], big["N"]
-    t_bytes = B * N * 16 / PEAK_BYTES_PER_S
-    t_ops = B * N * OPS_PER_ADD / PEAK_INT32_OPS
+    b12 = probe_scan_bounds(B, N, sass["f64_add_full"]["instructions_per_step"],
+                            lat["f64_add_latency_ns"])
     p = pf.scan_inputs(B, N, dev, seed=N)
     yard_ms = cuda_ms(lambda: torch.cumsum(p, dim=1))
     del p
@@ -1269,8 +1345,8 @@ def phase_probe_f64():
         "replaces": "scripts/probe_mosaic_f64.py:125",
         "max_abs_err": 0.0, "ms": big["ms"],
         "plain_ms": big["plain_ms_host_clock"], "plain_tips": big["plain_tips"],
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **b12, "bound_share": b12["bound_ms"] / big["ms"],
+        "chain_floor_share": b12["chain_floor_ms"] / big["ms"],
         "library_ms": None,
         "cumsum_yardstick_ms": yard_ms,  # other rounding: not the function
         "shape": {"G": B // 128, "N": N, "lanes": 128},
@@ -1279,45 +1355,10 @@ def phase_probe_f64():
         "ms_by_tips": {l["N"]: l["ms"] for l in scans},
         "k5_ms_by_tips": {l["N"]: l["k5_ms"] for l in scans},
         "bits_equal_k5": True,
+        "whole_space_shapes": shapes,
     }
     line = {"phase": "probe_f64", "checks": lines, "launches": counts}
     return line, [k11, k12]
-
-
-def phase_probe_ops():
-    """K13's seven chains through ``tools/probe_ops.py``: ``(the phase's
-    line, K13 entry)``."""
-    from raxtax_tpu_torch.ops.opchain import CHAINS, OPS_PER_STEP
-    from raxtax_tpu_torch.tools import probe_ops as po
-
-    dev = torch.device("cuda")
-    reset_counts()
-    lines = [po.chain_line(c, dev, PROBE_ITERS, PROBE_CHECK_ITERS) for c in CHAINS]
-    counts = read_counts()
-    bad = [l["chain"] for l in lines if not l["bits_equal_plain"]]
-    if bad:
-        raise AssertionError(f"probe_ops: chains differ from the plain version: {bad}")
-    if counts["probe_op_chain"] < len(CHAINS):
-        raise AssertionError(f"probe_ops: launches {counts['probe_op_chain']}")
-    ops = 8 * 128 * PROBE_ITERS * sum(OPS_PER_STEP.values())
-    t_ops = ops / PEAK_INT32_OPS
-    t_bytes = 8 * 128 * 12 * len(CHAINS) / PEAK_BYTES_PER_S
-    k13 = {
-        "name": "probe_op_chain", "route": "cuda",
-        "source": "raxtax_tpu_torch/csrc/probe_ops.cu",
-        "replaces": "scripts/probe_mosaic_perf.py:55",
-        "max_abs_err": 0.0,
-        # the seven chains, one launch each at PROBE_ITERS steps
-        "ms": sum(l["ms"] for l in lines),
-        # the plain version at PROBE_CHECK_ITERS steps (a torch loop)
-        "plain_ms": sum(l["plain_ms_host_clock"] for l in lines),
-        "plain_iters": PROBE_CHECK_ITERS,
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "iters": PROBE_ITERS,
-        "ns_per_iter": {l["chain"]: l["ns_per_iter"] for l in lines},
-    }
-    return {"phase": "probe_ops", "chains": lines, "launches": counts}, k13
 
 
 def phase_fuzz() -> dict:
@@ -1397,10 +1438,10 @@ def main() -> int:
         return 1
     env = phase_env()
     say(env)
-    probe_line, probe_kernels = phase_probe_f64()
-    say(probe_line)
-    ops_line, k13 = phase_probe_ops()
+    ops_line, k13, sass, add_latency = phase_probe_ops()
     say(ops_line)
+    probe_line, probe_kernels = phase_probe_f64(sass, add_latency)
+    say(probe_line)
     note("probes done")
     db, queries, build_s = build_world(65536)
     note(f"65k world built in {build_s:.1f}s")

@@ -1,39 +1,80 @@
 // Software IEEE-754 binary64 on (hi, lo) u32 halves, for the probe kernels
-// (K11, K12, K13). The counterpart, step for step, of the JAX package's
-// ops/exactf64.py and of the port's ops/exactf64.py: the same 32-bit
-// unsigned operations in the same order, so a kernel built on these
-// functions computes the bits the TPU kernels compute, inside and outside
-// the contract (the operation-chain probe feeds f64_add arbitrary words).
+// (K11, K12, K13). The same functions as the JAX package's ops/exactf64.py
+// and the port's ops/exactf64.py, bit for bit on every input word, inside
+// and outside the contract (the operation-chain probe feeds f64_add
+// arbitrary words, exponent 0 and 2047 and the sign bit included): the
+// plain version is the specification, not the order of its operations.
 //
 // The card has f64 in hardware; these functions deliberately do not call
-// __dadd_rn or __dsub_rn. The one liberty taken: __clz replaces the
-// smear-and-popcount count of leading zeros, because it returns the same
-// value for every word (32 for 0).
+// __dadd_rn or __dsub_rn and use no double.
+//
+// rx_f64_add_u32 is written for Hopper's integer pipe. The JAX module's 189
+// u32 operations build every 64-bit shift from muxes (ptxas compiles them
+// to 110 instructions with a dependent path of 35); here the pair is one
+// 64-bit word, and few operations depend on the running sum of a chain
+// (K12, K13's f64_add_full):
+//   - the swap is one 64-bit compare, and what each operand contributes
+//     (the 55-bit mantissa with two guard bits, the exponent differences
+//     clamped to 63, the sign-and-exponent field) is computed for both
+//     operands before it and selected after it;
+//   - the alignment is one 64-bit shift (two funnel shifts); its sticky bit
+//     is the shifted word shifted back and compared, so no mask is built;
+//   - rounding to nearest even is a round-half-up add folded into the
+//     mantissa sum (x + y + 2, or + 4 when the sum carries into bit 55) and
+//     one cleared bit on an exact tie; both cases are computed and the carry
+//     out of t0 = x + y + 2 selects one (where t0 carries and the sum does
+//     not, both cases give the same power of two);
+//   - the exponent enters by one 32-bit add on the high word: the mantissa
+//     with its implicit bit is added to (exponent - 1) << 52, so a rounding
+//     that carries to 2^53 raises the exponent by itself, and the exponent
+//     field wraps modulo 4096 as the JAX module's u32 shift wraps it.
+// A zero operand returns the other one (both zero: zero), as in the plain
+// version: the OR of the two words. On sm_90a the add is 53 instructions a
+// step with a dependent path of 14 in K13's unrolled chain
+// (tools/probe_ops.py chain_sass).
+//
+// rx_f64_sub_u32 (K11 alone) keeps the JAX module's u32 steps in their
+// order, with __clz for the smear-and-popcount count of leading zeros (the
+// same value for every word, 32 for 0).
 //
 // Contract of the arithmetic, as in the JAX module: rx_f64_add_u32 rounds to
 // nearest even for non-negative, normal-or-zero operands whose sum does not
-// overflow; rx_f64_sub_u32 for a >= b >= 0, both normal or zero.
+// overflow; rx_f64_sub_u32 for a >= b >= 0, both normal or zero. Outside it
+// both return the JAX module's bits, not IEEE's.
+//
+// Compiled for the card under nvcc; with RX_EXACTF64_HOST defined a host
+// compiler builds the same functions (the CPU tests hold them against the
+// plain version that way).
 #pragma once
 #include <stdint.h>
 
-#ifdef __CUDACC__
+#if defined(__CUDACC__)
+#define RX_F64_FN __device__ __forceinline__
+#define RX_F64_CLZ(x) ((unsigned)__clz((int)(x)))
+#define RX_F64_MIN(x, y) min((x), (y))
+#elif defined(RX_EXACTF64_HOST)
+#define RX_F64_FN static inline
+#define RX_F64_CLZ(x) ((x) ? (unsigned)__builtin_clz(x) : 32u)
+#define RX_F64_MIN(x, y) ((x) < (y) ? (x) : (y))
+#endif
+
+#ifdef RX_F64_FN
 // 1 iff x != 0, in u32 arithmetic
-__device__ __forceinline__ unsigned rx_nz(unsigned x) {
+RX_F64_FN unsigned rx_nz(unsigned x) {
     return (x | (0u - x)) >> 31;
 }
 
 // a if c (a 0/1 flag) else b, branch-free
-__device__ __forceinline__ unsigned rx_mux(unsigned c, unsigned a, unsigned b) {
+RX_F64_FN unsigned rx_mux(unsigned c, unsigned a, unsigned b) {
     const unsigned m = 0u - c;
     return b ^ ((a ^ b) & m);
 }
 
 // Logical right shift of the pair (hi:lo) by d, with the sticky flag of the
 // bits shifted out; any d (d >= 64 moves everything into sticky).
-__device__ __forceinline__ void rx_shr_pair_sticky(unsigned hi, unsigned lo,
-                                                   unsigned d, unsigned& hi_s,
-                                                   unsigned& lo_s,
-                                                   unsigned& sticky) {
+RX_F64_FN void rx_shr_pair_sticky(unsigned hi, unsigned lo, unsigned d,
+                                  unsigned& hi_s, unsigned& lo_s,
+                                  unsigned& sticky) {
     const unsigned d1 = rx_mux(d > 63u ? 1u : 0u, 63u, d);
     const unsigned big = (d1 >> 5) & 1u;
     const unsigned d32 = d1 & 31u;
@@ -54,10 +95,10 @@ __device__ __forceinline__ void rx_shr_pair_sticky(unsigned hi, unsigned lo,
     sticky = rx_mux(huge, rx_nz(hi | lo), s);
 }
 
-// Logical left shift of the pair (hi:lo) by k in [0, 63].
-__device__ __forceinline__ void rx_shl_pair(unsigned hi, unsigned lo,
-                                            unsigned k, unsigned& hi_s,
-                                            unsigned& lo_s) {
+// Logical left shift of the pair (hi:lo) by k (its low 6 bits, as the JAX
+// module's u32 steps read it).
+RX_F64_FN void rx_shl_pair(unsigned hi, unsigned lo, unsigned k,
+                           unsigned& hi_s, unsigned& lo_s) {
     const unsigned one_side = (k >> 5) & 1u;
     const unsigned k32 = k & 31u;
     const unsigned inv = (32u - k32) & 31u;
@@ -67,60 +108,55 @@ __device__ __forceinline__ void rx_shl_pair(unsigned hi, unsigned lo,
     lo_s = rx_mux(one_side, 0u, lo_small);
 }
 
-// RN(a + b): 53-bit mantissas widened by two guard bits, the smaller
-// operand aligned with a sticky bit, one renormalising shift, round to
-// nearest even, one more shift if the rounding carried out.
-__device__ __forceinline__ void rx_f64_add_u32(unsigned ah, unsigned al,
-                                               unsigned bh, unsigned bl,
-                                               unsigned& ch, unsigned& cl) {
-    const unsigned a_zero = 1u - rx_nz(ah | al);
-    const unsigned b_zero = 1u - rx_nz(bh | bl);
-    const unsigned swap =
-        (unsigned)(bh > ah) | ((unsigned)(bh == ah) & (unsigned)(bl > al));
-    const unsigned xh = rx_mux(swap, bh, ah);
-    const unsigned xl = rx_mux(swap, bl, al);
-    const unsigned yh = rx_mux(swap, ah, bh);
-    const unsigned yl = rx_mux(swap, al, bl);
-    const unsigned ex = xh >> 20;
-    const unsigned ey = yh >> 20;
-    const unsigned d = ex - ey;
-    const unsigned x55h = (((xh & 0xFFFFFu) | 0x100000u) << 2) | (xl >> 30);
-    const unsigned x55l = xl << 2;
-    const unsigned y55h = (((yh & 0xFFFFFu) | 0x100000u) << 2) | (yl >> 30);
-    const unsigned y55l = yl << 2;
-    unsigned ys_h, ys_l, sticky;
-    rx_shr_pair_sticky(y55h, y55l, d, ys_h, ys_l, sticky);
-    unsigned sl = x55l + ys_l;
-    const unsigned carry = (unsigned)(sl < x55l);
-    unsigned sh = x55h + ys_h + carry;
-    const unsigned ovf = (sh >> 23) & 1u;
-    sticky = sticky | (ovf & sl & 1u);
-    sl = rx_mux(ovf, (sl >> 1) | (sh << 31), sl);
-    sh = rx_mux(ovf, sh >> 1, sh);
-    const unsigned e_r = ex + ovf;
-    const unsigned g = (sl >> 1) & 1u;
-    const unsigned r0 = sl & 1u;
-    const unsigned lsb = (sl >> 2) & 1u;
-    const unsigned inc = g & (r0 | sticky | lsb);
-    const unsigned m_l = (sl >> 2) | (sh << 30);
-    const unsigned m_h = sh >> 2;
-    const unsigned m_l2 = m_l + inc;
-    const unsigned m_h2 = m_h + (unsigned)(m_l2 < m_l);
-    const unsigned ovf2 = (m_h2 >> 21) & 1u;
-    const unsigned m_l3 = rx_mux(ovf2, (m_l2 >> 1) | (m_h2 << 31), m_l2);
-    const unsigned m_h3 = rx_mux(ovf2, m_h2 >> 1, m_h2);
-    const unsigned e_r2 = e_r + ovf2;
-    const unsigned h = (e_r2 << 20) | (m_h3 & 0xFFFFFu);
-    ch = rx_mux(a_zero, bh, rx_mux(b_zero, ah, h));
-    cl = rx_mux(a_zero, bl, rx_mux(b_zero, al, m_l3));
+// The 53-bit mantissa (implicit bit always set, exponent 0 included)
+// shifted up by two guard bits.
+RX_F64_FN uint64_t rx_f64_m55(unsigned h, unsigned l) {
+    return ((uint64_t)((h & 0xFFFFFu) | 0x100000u) << 34) | ((uint64_t)l << 2);
+}
+
+// RN(a + b): the larger word's mantissa plus the smaller one's aligned to
+// it, rounded to nearest even; see the note at the top.
+RX_F64_FN void rx_f64_add_u32(unsigned ah, unsigned al, unsigned bh,
+                              unsigned bl, unsigned& ch, unsigned& cl) {
+    const uint64_t a = ((uint64_t)ah << 32) | al;
+    const uint64_t b = ((uint64_t)bh << 32) | bl;
+    const uint64_t ma = rx_f64_m55(ah, al), mb = rx_f64_m55(bh, bl);
+    const unsigned ea = ah >> 20, eb = bh >> 20;
+    const unsigned d_ab = RX_F64_MIN(ea - eb, 63u);  // b the smaller
+    const unsigned d_ba = RX_F64_MIN(eb - ea, 63u);  // a the smaller
+    const bool swap = b > a;
+    const uint64_t x = swap ? mb : ma;
+    const uint64_t y = swap ? ma : mb;
+    const unsigned d = swap ? d_ba : d_ab;
+    const unsigned top = (swap ? eb : ea) << 20;
+    // y < 2^55, so a shift by 55..63 leaves 0 and every bit sticky
+    const uint64_t ys = y >> d;
+    const bool sticky = (ys << d) != y;
+    const unsigned low = (unsigned)ys;
+    // exact ties: the dropped bits are 10 (sum below 2^55) or 100 (above);
+    // x's two guard bits are 0, so the sum's low bits are those of x ^ ys
+    const uint64_t tie0 = (!sticky && (low & 3u) == 2u) ? 1u : 0u;
+    const uint64_t tie1 =
+        (!sticky && ((low ^ (unsigned)x) & 7u) == 4u) ? 1u : 0u;
+    const uint64_t t0 = x + ys + 2u;
+    const uint64_t t1 = x + ys + 4u;
+    const uint64_t m0 = (t0 >> 2) & ~tie0;
+    const uint64_t m1 = (t1 >> 3) & ~tie1;
+    const bool carry = (t0 >> 55) != 0;
+    const unsigned h = carry ? top + (unsigned)(m1 >> 32)
+                             : top - 0x100000u + (unsigned)(m0 >> 32);
+    const unsigned l = carry ? (unsigned)m1 : (unsigned)m0;
+    const bool zero = a == 0 || b == 0;
+    const uint64_t z = a | b;
+    ch = zero ? (unsigned)(z >> 32) : h;
+    cl = zero ? (unsigned)z : l;
 }
 
 // RN(a - b) for a >= b >= 0: three extension bits with the sticky bit in
 // the lowest, a full-width subtraction, renormalisation by the count of
 // leading zeros, round to nearest even, and the exact denormal branch.
-__device__ __forceinline__ void rx_f64_sub_u32(unsigned ah, unsigned al,
-                                               unsigned bh, unsigned bl,
-                                               unsigned& ch, unsigned& cl) {
+RX_F64_FN void rx_f64_sub_u32(unsigned ah, unsigned al, unsigned bh,
+                              unsigned bl, unsigned& ch, unsigned& cl) {
     const unsigned b_zero = 1u - rx_nz(bh | bl);
     const unsigned ex = ah >> 20;
     const unsigned ey = bh >> 20;
@@ -135,8 +171,8 @@ __device__ __forceinline__ void rx_f64_sub_u32(unsigned ah, unsigned al,
     const unsigned borrow = (unsigned)(x56l < ys_l);
     const unsigned d_l = x56l - ys_l;
     const unsigned d_h = x56h - ys_h - borrow;
-    const unsigned lead = rx_mux(rx_nz(d_h), (unsigned)__clz((int)d_h),
-                                 32u + (unsigned)__clz((int)d_l));
+    const unsigned lead =
+        rx_mux(rx_nz(d_h), RX_F64_CLZ(d_h), 32u + RX_F64_CLZ(d_l));
     const unsigned k = lead - 8u;
     unsigned m_h, m_l;
     rx_shl_pair(d_h, d_l, k, m_h, m_l);
@@ -166,4 +202,4 @@ __device__ __forceinline__ void rx_f64_sub_u32(unsigned ah, unsigned al,
     ch = rx_mux(zero, 0u, rx_mux(b_zero, ah, h));
     cl = rx_mux(zero, 0u, rx_mux(b_zero, al, l));
 }
-#endif  // __CUDACC__
+#endif  // RX_F64_FN

@@ -14,18 +14,29 @@
 // Every state word therefore passes an empty `asm volatile("" : "+r"(x))`
 // after each step, and after each operation of the multi-operation bodies:
 // no instruction is emitted, but the compiler no longer knows the value, so
-// each operation stays, dependent on the one before. `#pragma unroll 1`
-// keeps one step per trip, so the loop's own counter, compare and branch are
-// in every step's time (as in the TPU probe's fori_loop). The bits are those
-// of the plain version (ops/opchain.py), which checks them.
+// each operation stays, dependent on the one before. The bits are those of
+// the plain version (ops/opchain.py), which checks them.
 //
-// What `cuobjdump -sass` shows (tools/probe_ops.py --sass, sm_90a): every
-// chain's operations are inside its loop, one step per trip, no closed form.
-// The barrier binds the compiler's front end only: ptxas still fuses pairs of
-// u32_add_x8's adds into four IADD3, and the four shifts of shift_var_x4 keep
-// their masks hoisted out of the loop. The loop trip (a uniform-register
-// counter, compare and branch) costs more than any one-operation body, so
-// those chains time the trip; f64_add_full is the one that times its body.
+// The loop is unrolled by CHAIN_UNROLL steps a trip, with a remainder loop
+// for iters % CHAIN_UNROLL, so the loop's own counter, compare and branch
+// cost one sixteenth of a step: a one-operation chain reads the latency of
+// its operation, which is what the TPU probe says it isolates
+// (probe_mosaic_perf.py:2-7), and f64_add_full reads the latency of one
+// software add (rx_f64_add_u32), the floor of K12.
+//
+// What `cuobjdump -sass` shows (tools/probe_ops.py --sass, sm_90a): each
+// chain's main loop holds CHAIN_UNROLL copies of its body, every operation
+// of every step inside it, no closed form; the remainder loop one copy. The
+// barrier binds the compiler's front end only: ptxas fuses two dependent
+// adds into one three-input IADD3 (u32_add_x8's eight adds are four a step,
+// u32_add_x1's sixteen are eight a trip, and so are the s1 adds of three
+// other chains) and hoists the masks of the variable shifts and the
+// addend's half of f64_add_full. With an immediate shift amount it merged
+// shift_fixed_x1's sixteen shifts of a trip into one shift by 80, a
+// constant 0, so that chain shifts by a run-time 5 (one SHF a step, as the
+// immediate form is). tools/probe_ops.py chain_sass counts the instructions
+// and the dependent instructions a step from the SASS, and
+// tools/kernel_batch.py turns them into each chain's floor.
 //
 // Bound: the latency of the dependent chain, one step after the other; 1,024
 // threads in 8 CTAs leave the card almost idle, which is the point.
@@ -35,6 +46,7 @@
 namespace {
 
 constexpr int CHAIN_THREADS = 128;
+constexpr int CHAIN_UNROLL = 16;  // steps a trip of the main loop
 
 __device__ __forceinline__ void opaque(unsigned& x) {
     asm volatile("" : "+r"(x));
@@ -51,9 +63,11 @@ enum Chain {
     F64_ADD_FULL = 6,
 };
 
+// One step of chain CHAIN; five is 5, a value ptxas cannot see (below).
 template <int CHAIN>
 __device__ __forceinline__ void step(unsigned& s0, unsigned& s1,
-                                     const unsigned a, const unsigned b) {
+                                     const unsigned a, const unsigned b,
+                                     const unsigned five) {
     if (CHAIN == U32_ADD_X1) {
         s0 = s0 + b;
     } else if (CHAIN == U32_ADD_X8) {
@@ -66,7 +80,7 @@ __device__ __forceinline__ void step(unsigned& s0, unsigned& s1,
             opaque(s0);
         }
     } else if (CHAIN == SHIFT_FIXED_X1) {
-        s0 = s0 >> 5;
+        s0 = s0 >> five;
         s1 = s1 + a;
     } else if (CHAIN == SHIFT_VAR_X1) {
         s0 = s0 >> (b & 31u);
@@ -98,9 +112,22 @@ op_chain_kernel(const unsigned* __restrict__ a_in,
     if (i >= n) return;
     const unsigned a = a_in[i], b = b_in[i];
     unsigned s0 = a, s1 = a + 1u;
+    // ptxas folds sixteen shifts by an immediate 5 into one shift by 80,
+    // which is 0; the entry refuses iters < 0, so this is 5 at run time
+    const unsigned five = 5u + ((unsigned)iters >> 31);
+    int it = 0;
 #pragma unroll 1
-    for (int it = 0; it < iters; ++it) {
-        step<CHAIN>(s0, s1, a, b);
+    for (; it + CHAIN_UNROLL <= iters; it += CHAIN_UNROLL) {
+#pragma unroll
+        for (int u = 0; u < CHAIN_UNROLL; ++u) {
+            step<CHAIN>(s0, s1, a, b, five);
+            opaque(s0);
+            opaque(s1);
+        }
+    }
+#pragma unroll 1
+    for (; it < iters; ++it) {
+        step<CHAIN>(s0, s1, a, b, five);
         opaque(s0);
         opaque(s1);
     }

@@ -4,8 +4,9 @@ Each ``*.cu`` source becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``.
 All sources are compiled at once, one ``nvcc`` process each, into the
 package's ``build/`` directory (not under version control); a library is
-reused while its source and the shared headers are unchanged. A failed build
-raises with the compiler's output: there is no fallback for a CUDA tensor.
+reused while its source and the headers it includes are unchanged. A failed
+build raises with the compiler's output: there is no fallback for a CUDA
+tensor.
 
 The binding convention: every pointer and the stream are ``c_void_p``
 (``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``),
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -58,15 +60,27 @@ def find_nvcc() -> str:
     )
 
 
+def _headers(csrc: Path, name: str, seen: set | None = None) -> list[Path]:
+    """The ``csrc`` headers that ``name`` includes with ``#include "..."``,
+    directly or through another header, sorted."""
+    seen = set() if seen is None else seen
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                          (csrc / name).read_text(), re.M):
+        if inc not in seen and (csrc / inc).is_file():
+            seen.add(inc)
+            _headers(csrc, inc, seen)
+    return [csrc / h for h in sorted(seen)]
+
+
 def _lib_path(stem: str, csrc: Path | None = None,
               out: Path | None = None) -> Path:
     """The library ``csrc/<stem>.cu`` builds into under ``out`` (by default
     the package's sources and build directory)."""
     csrc, out = csrc or CSRC, out or BUILD_DIR
-    # every shared header goes into every library's name: a source may
-    # include any of them, and an edited header must not leave a stale build
+    # the source and every header it includes go into the library's name: an
+    # edited header rebuilds the libraries that include it, and only those
     h = hashlib.sha1()
-    for src in (csrc / f"{stem}.cu", *sorted(csrc.glob("*.cuh"))):
+    for src in (csrc / f"{stem}.cu", *_headers(csrc, f"{stem}.cu")):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return out / f"lib{stem}_{h.hexdigest()[:12]}.so"

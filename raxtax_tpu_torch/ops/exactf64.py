@@ -17,19 +17,21 @@ Contract, as in the JAX module: :func:`f64_add` rounds to nearest even for
 non-negative, normal-or-zero operands whose sum does not overflow;
 :func:`f64_sub` for ``a >= b >= 0``, both normal or zero.
 
-The probes (CUDA kernels ``csrc/probe_f64.cu`` on ``csrc/exactf64.cuh``):
+The probes (CUDA kernels ``csrc/probe_f64.cu`` on ``csrc/exactf64.cuh``,
+whose add returns this module's bits on every input word with Hopper's
+64-bit compares, funnel shifts and three-input adds instead of these steps):
 
 - :func:`probe_f64_ew` — K11, replaces ``ew_kernel``
   (``scripts/probe_mosaic_f64.py:47``, ``pallas_call`` at :62): per element
   ``c = a + b`` and ``c - b`` as (hi, lo) pairs. One thread per element;
-  bound by the integer work (:data:`OPS_PER_ADD` + :data:`OPS_PER_SUB` u32
-  operations per pair) rather than by its 32 bytes.
+  bound by its 32 bytes a pair, its integer instructions close behind.
 - :func:`probe_f64_scan` — K12, replaces ``make_scan``/``scan_kernel``
   (``probe_mosaic_f64.py:80-113``, :125): the sequential software-f64 prefix
-  sum per lane over tips, ``[G, N, 128]`` u32 halves. Each lane of a
-  one-warp CTA walks one chain through shared-memory tiles of its own
-  column; bound by the latency of N dependent software adds, with only
-  ``G * 128`` chains.
+  sum per lane over tips, ``[G, N, 128]`` u32 halves. K5's design in this
+  layout: a walker warp carries 32 lanes' sums in registers and reads its
+  addends in register batches from a shared-memory ring that three copy
+  warps fill with ``cp.async`` and drain from a staging tile; bound by the
+  latency of N dependent software adds, with only ``G * 128`` chains.
 
 Both wrappers launch the kernel for CUDA tensors (``int32`` bit patterns) or
 raise; a CPU tensor takes the plain version.
@@ -45,12 +47,8 @@ import torch
 from . import _build
 
 M32 = 0xFFFFFFFF
-
-#: u32 operations of one :func:`f64_add` / :func:`f64_sub` as the algorithm
-#: writes them (a mux is four, a nonzero test three, the pair shift with
-#: sticky 72), counted from ``csrc/exactf64.cuh``; the bounds use them
-OPS_PER_ADD = 189
-OPS_PER_SUB = 285
+#: tips per ring slot of K12 (``SCAN_TILE`` in ``csrc/probe_f64.cu``)
+SCAN_TILE = 64
 
 
 # -- host conversions ------------------------------------------------------
@@ -280,6 +278,11 @@ def f64_le(ah, al, bh, bl) -> torch.Tensor:
 
 # -- K11 ----------------------------------------------------------------------
 
+#: argument types of rx_probe_f64_ew: the four input halves, the four output
+#: halves, the count, the stream
+_EW_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+
+
 def probe_f64_ew_plain(ah, al, bh, bl):
     """Plain version of K11: ``(c_hi, c_lo, d_hi, d_lo)`` int32 bit patterns
     of ``c = a + b`` and ``d = c - b``."""
@@ -297,10 +300,7 @@ def probe_f64_ew(ah, al, bh, bl):
         _build.require_cuda_tensor(t, torch.int32, name)
         if t.shape != ah.shape:
             raise ValueError("probe_f64_ew: the four halves differ in shape")
-    fn = _build.entry(
-        "probe_f64", "rx_probe_f64_ew",
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_void_p],
-    )
+    fn = _build.entry("probe_f64", "rx_probe_f64_ew", _EW_ARGTYPES)
     outs = [torch.empty_like(ah) for _ in range(4)]
     with torch.cuda.device(ah.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -318,6 +318,12 @@ probe_f64_ew.launches = 0
 
 
 # -- K12 ----------------------------------------------------------------------
+
+#: argument types of rx_probe_f64_scan: two input and two output halves, G,
+#: N, the stream
+_SCAN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                          ctypes.c_void_p]
+
 
 def probe_f64_scan_plain(ph, pl):
     """Plain version of K12: the inclusive prefix sum over tips of
@@ -345,12 +351,11 @@ def probe_f64_scan(ph, pl):
         return probe_f64_scan_plain(ph, pl)
     _build.require_cuda_tensor(ph, torch.int32, "p_hi")
     _build.require_cuda_tensor(pl, torch.int32, "p_lo")
+    if ph.data_ptr() % 16 or pl.data_ptr() % 16:
+        raise ValueError("probe_f64_scan: the kernel copies 16-byte chunks; "
+                         "pass 16-byte aligned tensors")
     G, N, _ = ph.shape
-    fn = _build.entry(
-        "probe_f64", "rx_probe_f64_scan",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                 ctypes.c_void_p],
-    )
+    fn = _build.entry("probe_f64", "rx_probe_f64_scan", _SCAN_ARGTYPES)
     oh = torch.empty_like(ph)
     ol = torch.empty_like(pl)
     with torch.cuda.device(ph.device):

@@ -7,9 +7,11 @@ and of one software f64 add, on the card).
 ``[8, 128]`` u32 state ``(a, a + 1)`` goes through ``iters`` steps of one of
 the seven bodies of ``probe_mosaic_perf.py:69-96`` (:data:`CHAINS`) and the
 XOR of the two state words comes back. One thread per element, the body a
-template parameter and the step count a run-time argument; an empty
-``asm volatile`` on the state keeps the compiler from folding a chain into a
-closed form (see the source). Bound: the latency of the dependent chain.
+template parameter and the step count a run-time argument; the step loop is
+unrolled by :data:`UNROLL` with a remainder loop, so the loop's trip costs a
+sixteenth of a step, and an empty ``asm volatile`` on the state after every
+step and operation keeps the compiler from folding a chain into a closed
+form (see the source). Bound: the latency of the dependent chain.
 
 :func:`probe_op_chain_plain` runs the same bodies as torch integer ops on
 ``int64`` words masked to 32 bits (:mod:`.exactf64`); the wrapper takes it
@@ -23,19 +25,19 @@ import ctypes
 import torch
 
 from . import _build
-from .exactf64 import M32, OPS_PER_ADD, as_i32, f64_add, words
+from .exactf64 import M32, as_i32, f64_add, words
 
 #: the seven chains, in the order of the kernel's template ids
 CHAINS = (
     "u32_add_x1", "u32_add_x8", "shift_fixed_x1", "shift_var_x1",
     "shift_var_x4", "cmp_select_x1", "f64_add_full",
 )
-#: u32 operations per element and step as each body writes them (the masks
-#: of the variable shifts included; f64_add as counted in exactf64)
-OPS_PER_STEP = {
-    "u32_add_x1": 1, "u32_add_x8": 8, "shift_fixed_x1": 2, "shift_var_x1": 3,
-    "shift_var_x4": 9, "cmp_select_x1": 4, "f64_add_full": OPS_PER_ADD,
-}
+#: steps a trip of the kernel's main loop (``CHAIN_UNROLL`` in the source)
+UNROLL = 16
+#: argument types of rx_probe_op_chain: the chain id, a, b, out, the count,
+#: the steps, the stream
+_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _step(name: str, s0, s1, a, b):
@@ -89,11 +91,7 @@ def probe_op_chain(name: str, a: torch.Tensor, b: torch.Tensor,
     _build.require_cuda_tensor(b, torch.int32, "b")
     if a.shape != b.shape:
         raise ValueError("probe_op_chain: a and b differ in shape")
-    fn = _build.entry(
-        "probe_ops", "rx_probe_op_chain",
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    )
+    fn = _build.entry("probe_ops", "rx_probe_op_chain", _ARGTYPES)
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

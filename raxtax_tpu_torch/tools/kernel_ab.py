@@ -1,9 +1,11 @@
-"""Designs of K1, K2, K3, K5, K10 and K6/K7 against each other, in turns,
-in one process.
+"""Designs of K1, K2, K3, K5, K10, K6/K7 and of the probes K11-K13 against
+each other, in turns, in one process.
 
     python -m raxtax_tpu_torch.tools.kernel_ab --other DIR [--other DIR2 ...]
         [--refs 1000000] [--rounds 2] [--cases fold_sparse,planes_hist,...]
         [--groups 1,2]
+    python -m raxtax_tpu_torch.tools.kernel_ab --other DIR \
+        --cases probe_f64,probe_f64_ew,probe_ops
 
 ``DIR`` holds other sources of ``fold_planes.cu``, ``fold_sparse.cu``,
 ``planes_hist.cu``, ``exact_cumsum.cu``, ``fold_stream.cu`` and
@@ -35,6 +37,20 @@ Prints one JSON line with every turn's time, the median and
 ``-Xptxas -v``, every case's bounds, K2's regroup time and K5's chain floor
 (``kernel_batch.dadd_latency``). Needs a GPU. Another kernel joins by
 entries in ``KERNELS`` and ``CASES`` and its launch in ``main``'s ``run``.
+
+The probe cases (``PROBE_CASES``) run on their own, without the world, in
+:func:`run_probes`: K12 (``probe_f64``) at 256 queries over 65,536 and
+1,048,576 tips, K11 (``probe_f64_ew``) on the adversarial pairs of
+``tools/probe_f64.py``, K13 (``probe_ops``) each chain at 5,000,000 steps.
+Before timing, every design is held against the plain versions on
+whole-space words (K12 at ragged tip counts, K13 at the step counts around
+its unrolled loop) and against the package's design at the timed shapes.
+Each design's floors come from its own library: K12's from its
+``f64_add_full`` chain's latency, K13's from the dependent instructions a
+step of its SASS (``tools/probe_ops.chain_sass``; an older design without
+``CHAIN_UNROLL`` walks one step a trip) times one dependent integer
+operation's latency, which the package's unrolled ``u32_add_x1`` chain
+reads for every design.
 """
 
 from __future__ import annotations
@@ -53,32 +69,50 @@ from types import SimpleNamespace
 KERNELS = {"fold_planes": "rx_fold_planes",
            "fold_sparse": "rx_fold_planes_sparse",
            "planes_hist": "rx_planes_hist", "exact_cumsum": "rx_exact_cumsum",
-           "fold_stream": "rx_fold_stream", "dd_cumsum": "rx_dd_cumsum"}
-#: the timed cases: name -> source stem (K7 is the bit-major form of K6)
+           "fold_stream": "rx_fold_stream", "dd_cumsum": "rx_dd_cumsum",
+           "probe_f64": "rx_probe_f64_scan", "probe_ops": "rx_probe_op_chain"}
+#: the timed cases: name -> source stem (K7 is the bit-major form of K6, K11
+#: shares K12's source)
 CASES = {"fold_planes": "fold_planes", "fold_sparse": "fold_sparse",
          "planes_hist": "planes_hist", "exact_cumsum": "exact_cumsum",
          "fold_stream": "fold_stream", "dd_cumsum": "dd_cumsum",
-         "dd_cumsum_bitmajor": "dd_cumsum"}
+         "dd_cumsum_bitmajor": "dd_cumsum", "probe_f64": "probe_f64",
+         "probe_f64_ew": "probe_f64", "probe_ops": "probe_ops"}
+#: the cases that run without the world, by :func:`run_probes`
+PROBE_CASES = ("probe_f64", "probe_f64_ew", "probe_ops")
+PROBE_TIPS = (65_536, 1_048_576)  # K12's tips (tools/probe_f64.SCRIPT_TIPS)
+PROBE_PAIRS = 17_000_000  # K11's adversarial pairs, as chip_smoke.py draws
+PROBE_ITERS = 5_000_000  # K13's steps, the TPU probe's count
 BATCH = 256  # queries, as in chip_smoke.py's kernels phase
 REPS = 5  # launches per timed turn
 
 
 def package_argtypes(stem: str) -> list:
-    from ..ops import exactscan, intersect_fold, intersect_stream, planes
+    from ..ops import (
+        exactf64,
+        exactscan,
+        intersect_fold,
+        intersect_stream,
+        opchain,
+        planes,
+    )
 
     return {"fold_planes": intersect_fold._ARGTYPES,
             "fold_sparse": intersect_fold._SPARSE_ARGTYPES,
             "planes_hist": planes._HIST_ARGTYPES,
             "exact_cumsum": exactscan._ARGTYPES,
             "fold_stream": intersect_stream._STREAM_ARGTYPES,
-            "dd_cumsum": planes._DD_ARGTYPES}[stem]
+            "dd_cumsum": planes._DD_ARGTYPES,
+            "probe_f64": exactf64._SCAN_ARGTYPES,
+            "probe_ops": opchain._ARGTYPES}[stem]
 
 
 def build(csrc: Path, out: Path) -> tuple[dict, dict]:
     """Every source of ``KERNELS`` under ``csrc``, built into ``out``: the
     entry points by stem (and K6/K7's scratch size as
-    ``dd_cumsum_scratch``), and nvcc's ``-Xptxas -v`` reading by stem."""
-    from ..ops import _build, planes
+    ``dd_cumsum_scratch``, K11 as ``probe_f64_ew``), and nvcc's ``-Xptxas
+    -v`` reading by stem."""
+    from ..ops import _build, exactf64, planes
 
     _build.build_all(tuple(KERNELS), csrc, out)
     fns, usage = {}, {}
@@ -91,6 +125,10 @@ def build(csrc: Path, out: Path) -> tuple[dict, dict]:
             f = lib.rx_dd_cumsum_scratch_words
             f.restype, f.argtypes = ctypes.c_longlong, planes._DD_SCRATCH_ARGTYPES
             fns["dd_cumsum_scratch"] = f
+        if stem == "probe_f64":
+            f = lib.rx_probe_f64_ew
+            f.restype, f.argtypes = ctypes.c_int, exactf64._EW_ARGTYPES
+            fns["probe_f64_ew"] = f
         log = out / f"{stem}.nvcc.log"
         usage[stem] = ptxas_usage(log.read_text()) if log.is_file() else []
     return fns, usage
@@ -133,20 +171,214 @@ def mean_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def turns_of(keys, labels, rounds: int, fn) -> dict:
+    """CUDA-event times of ``fn(label, *key)`` for every key, the designs
+    in the order package, others, others reversed, package, ``rounds``
+    times: ``{key: {label: [ms, ...]}}``."""
+    order = labels + labels[1:][::-1] + labels[:1]
+    turns = {key: {l: [] for l in labels} for key in keys}
+    for _ in range(rounds):
+        for key in keys:
+            for label in order:
+                turns[key][label].append(fn(label, *key))
+    return turns
+
+
+def design_unroll(csrc: Path) -> int:
+    """K13's steps a trip of the main loop in the design under ``csrc``
+    (``CHAIN_UNROLL``; 1 for a design without it)."""
+    m = re.search(r"CHAIN_UNROLL\s*=\s*(\d+)", (csrc / "probe_ops.cu").read_text())
+    return int(m.group(1)) if m else 1
+
+
+def run_probes(cases, designs: dict, fns: dict, rounds: int) -> dict:
+    """The probe cases of every design, in turns (see the module's note):
+    one JSON-ready dict with each case's turns, medians, bounds and floors
+    per design, and each design's SASS counts and add latency."""
+    import numpy as np
+    import torch
+
+    from ..ops import _build
+    from ..ops import exactf64 as xf
+    from ..ops.opchain import CHAINS, probe_op_chain_plain, probe_state
+    from . import probe_f64 as pf
+    from . import probe_ops as po
+    from .kernel_batch import (
+        dependent_op_ns,
+        op_chain_bounds,
+        probe_ew_bounds,
+        probe_scan_bounds,
+    )
+    from .profile_path import gpu_line
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    labels = list(designs)
+
+    def ok(code: int, what: str):
+        if code != 0:
+            raise RuntimeError(f"{what}: CUDA error {code}")
+
+    def scan(label, ph, pl):
+        oh, ol = torch.empty_like(ph), torch.empty_like(pl)
+        ok(fns[label, "probe_f64"](ph.data_ptr(), pl.data_ptr(), oh.data_ptr(),
+                                   ol.data_ptr(), ph.shape[0], ph.shape[1],
+                                   stream), f"{label} probe_f64")
+        return oh, ol
+
+    def ew(label, halves):
+        outs = [torch.empty_like(halves[0]) for _ in range(4)]
+        ok(fns[label, "probe_f64_ew"](*(t.data_ptr() for t in halves),
+                                      *(o.data_ptr() for o in outs),
+                                      halves[0].numel(), stream),
+           f"{label} probe_f64_ew")
+        return tuple(outs)
+
+    def chain(label, name, x, y, iters):
+        out = torch.empty_like(x)
+        ok(fns[label, "probe_ops"](CHAINS.index(name), x.data_ptr(),
+                                   y.data_ptr(), out.data_ptr(), x.numel(),
+                                   iters, stream), f"{label} probe_ops")
+        return out
+
+    def same(x, y) -> bool:
+        return all(bool(torch.equal(u, v)) for u, v in zip(x, y))
+
+    # every design against the plain versions on whole-space words
+    words = pf.whole_space_halves((1 << 16,), dev, 3)
+    want_ew = xf.probe_f64_ew_plain(*words)
+    wx, wy = po.whole_space_state(dev, 4)
+    shapes = ((2, 1), (2, xf.SCAN_TILE - 1), (2, xf.SCAN_TILE + 1),
+              (1, 3 * xf.SCAN_TILE + 5))
+    for label in labels:
+        if "probe_f64_ew" in cases and not same(ew(label, words), want_ew):
+            raise AssertionError(f"{label}: K11 differs on whole-space words")
+        for G, N in shapes if "probe_f64" in cases else ():
+            ph, pl, _, _ = pf.whole_space_halves((G, N, 128), dev, N)
+            if not same(scan(label, ph, pl), xf.probe_f64_scan_plain(ph, pl)):
+                raise AssertionError(f"{label}: K12 differs at {G} x {N}")
+        for name in CHAINS if "probe_ops" in cases else ():
+            for n in po.EDGE_ITERS:
+                if not torch.equal(chain(label, name, wx, wy, n),
+                                   probe_op_chain_plain(name, wx, wy, n)):
+                    raise AssertionError(f"{label}: {name} differs at {n} steps")
+
+    # the timed inputs, and every design against the package's on them
+    keys, run = [], {}
+    if "probe_f64" in cases:
+        for N in PROBE_TIPS:
+            ph, pl = xf.to_lane_groups(pf.scan_inputs(BATCH, N, dev, seed=N))
+            keys.append(("probe_f64", N))
+            run["probe_f64", N] = lambda l, ph=ph, pl=pl: scan(l, ph, pl)
+    if "probe_f64_ew" in cases:
+        a, b = pf.adversarial_pairs(np.random.default_rng(0), PROBE_PAIRS)
+        halves = [torch.from_numpy(x.view(np.int32)).to(dev)
+                  for x in (*xf.split64(a), *xf.split64(b))]
+        n_pairs = int(a.size)
+        keys.append(("probe_f64_ew",))
+        run["probe_f64_ew",] = lambda l: ew(l, halves)
+    x, y = probe_state(dev)
+    if "probe_ops" in cases:
+        for name in CHAINS:
+            keys.append(("probe_ops", name))
+            run["probe_ops", name] = (
+                lambda l, name=name: chain(l, name, x, y, PROBE_ITERS))
+    for key in keys:
+        want = run[key]("tree")
+        for label in labels[1:]:
+            got = run[key](label)
+            if not same(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+                raise AssertionError(f"{label}: {key} differs from the package's")
+    torch.cuda.synchronize()
+
+    # REPS launches a turn; K13's chains one (each is 0.05-0.6 s)
+    turns = turns_of(keys, labels, rounds, lambda l, *key: mean_ms(
+        lambda: run[key](l), 1 if key[0] == "probe_ops" else REPS))
+
+    # each design's floors: its SASS, its add's latency
+    sass, lat, ipp = {}, {}, {}
+    for i, label in enumerate(labels):
+        out = _build.BUILD_DIR / "ab" / str(i)
+        sass[label] = po.chain_sass(
+            po.library_sass("probe_ops", designs[label], out),
+            design_unroll(designs[label]))
+        ipp[label] = po.ew_instructions_per_pair(
+            po.library_sass("probe_f64", designs[label], out))
+        short, long_ = (statistics.median(
+            mean_ms(lambda: chain(label, "f64_add_full", x, y, n), 1)
+            for _ in range(3)) for n in (1 << 20, 4 << 20))
+        lat[label] = (long_ - short) * 1e6 / (3 << 20)
+
+    line = {"gpu": gpu_line(), "batch": BATCH, "rounds": rounds,
+            "order": labels + labels[1:][::-1] + labels[:1],
+            "bits_equal": True, "whole_space_scan_shapes": shapes,
+            "f64_add_latency_ns": lat, "sass": sass,
+            "k11_instructions_per_pair": ipp}
+    med = {key: {l: statistics.median(v) for l, v in t.items()}
+           for key, t in turns.items()}
+    if "probe_f64" in cases:
+        line["probe_f64"] = {}
+        for N in PROBE_TIPS:
+            b = {l: probe_scan_bounds(BATCH, N,
+                                      sass[l]["f64_add_full"]["instructions_per_step"],
+                                      lat[l]) for l in labels}
+            m = med["probe_f64", N]
+            line["probe_f64"][N] = {
+                "turns_ms": turns["probe_f64", N], "median_ms": m,
+                "bounds": b,
+                "bound_share": {l: b[l]["bound_ms"] / m[l] for l in labels},
+                "chain_floor_share": {l: b[l]["chain_floor_ms"] / m[l]
+                                      for l in labels},
+                "ns_per_chain_step": {l: m[l] * 1e6 / N for l in labels}}
+    if "probe_f64_ew" in cases:
+        m = med["probe_f64_ew",]
+        b = {l: probe_ew_bounds(n_pairs, ipp[l]) for l in labels}
+        line["probe_f64_ew"] = {
+            "pairs": n_pairs, "turns_ms": turns["probe_f64_ew",],
+            "median_ms": m, "bounds": b,
+            "bound_share": {l: b[l]["bound_ms"] / m[l] for l in labels}}
+    if "probe_ops" in cases:
+        per = {c: {l: med["probe_ops", c][l] for l in labels} for c in CHAINS}
+        total = {l: sum(per[c][l] for c in CHAINS) for l in labels}
+        # one dependent operation's latency, from the package's unrolled
+        # u32_add_x1 chain (an older design's one-step trips time the trip)
+        op_ns = dependent_op_ns(per["u32_add_x1"]["tree"] * 1e6 / PROBE_ITERS,
+                                sass["tree"])
+        b = {l: op_chain_bounds(sass[l], x.numel(), PROBE_ITERS, op_ns)
+             for l in labels}
+        line["probe_ops"] = {
+            "iters": PROBE_ITERS,
+            "turns_ms": {c: turns["probe_ops", c] for c in CHAINS},
+            "median_ms": per, "total_ms": total,
+            "ns_per_iter": {c: {l: per[c][l] * 1e6 / PROBE_ITERS
+                                for l in labels} for c in CHAINS},
+            "bounds": b,
+            "bound_share": {l: b[l]["bound_ms"] / total[l] for l in labels},
+            "chain_floor_share": {l: b[l]["chain_floor_ms"] / total[l]
+                                  for l in labels}}
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", action="append", required=True,
                     help="a directory with other sources of the kernels")
     ap.add_argument("--refs", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--cases", default=",".join(CASES),
-                    help="comma-separated cases to time (default: all)")
+    ap.add_argument("--cases",
+                    default=",".join(c for c in CASES if c not in PROBE_CASES),
+                    help="comma-separated cases to time (default: all but "
+                    "the probes, which run on their own)")
     ap.add_argument("--groups", default="1,2",
                     help="K10's group sizes, each timed on both batches")
     a = ap.parse_args(argv)
     cases = [c for c in a.cases.split(",") if c]
     if not set(cases) <= set(CASES):
         ap.error(f"--cases: one of {', '.join(CASES)}")
+    probes = [c for c in cases if c in PROBE_CASES]
+    if probes and len(probes) != len(cases):
+        ap.error("--cases: the probe cases run on their own")
     groups = [int(g) for g in a.groups.split(",") if g]
 
     import numpy as np
@@ -191,6 +423,12 @@ def main(argv=None) -> int:
             fns[label, stem] = fn
         for stem in KERNELS:
             usage[f"{label}:{stem}"] = use[stem]
+    if probes:
+        line = run_probes(probes, designs, fns, a.rounds)
+        line["ptxas"] = {k: v for k, v in usage.items()
+                         if k.split(":")[-1] in {CASES[c] for c in probes}}
+        print(json.dumps(line), flush=True)
+        return 0
 
     db, queries, _ = build_world(a.refs, B)
     # the sparse fold's block-padded matrix; every fold reads it (at 65,536
@@ -370,12 +608,8 @@ def main(argv=None) -> int:
 
     labels = list(designs)
     order = labels + labels[1:][::-1] + labels[:1]
-    turns = {key: {l: [] for l in labels} for key in keys}
-    for _ in range(a.rounds):
-        for key in keys:
-            for label in order:
-                turns[key][label].append(
-                    mean_ms(lambda: run(label, *key), REPS))
+    turns = turns_of(keys, labels, a.rounds,
+                     lambda label, *key: mean_ms(lambda: run(label, *key), REPS))
 
     group = st.stream_group_size(B, P)
 

@@ -1,13 +1,18 @@
 """One batch of queries at the kernels' shapes, and the bounds of K1, K2,
-K3, K5, K10 and K6/K7 on it: shared by ``chip_smoke.py``'s ``kernels``
-phase and ``tools/kernel_ab.py``, so both time the same inputs against the
-same bounds.
+K3, K5, K10 and K6/K7 on it, and of the probes K11-K13: shared by
+``chip_smoke.py``'s ``kernels`` and probe phases and ``tools/kernel_ab.py``,
+so both time the same inputs against the same bounds.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of the bytes it must move over the memory rate and the operations it
 must do over the peak rate for their type (one H100 SXM, NVIDIA's data
-sheet). K5 has a third limit that neither sees: its ``B`` chains of ``N``
-dependent adds, measured here by :func:`dadd_latency`.
+sheet). K5, K12 and K13 have a third limit that neither sees, their chains
+of dependent steps: K5's floor is ``N`` times one dependent ``__dadd_rn``
+(:func:`dadd_latency`), K12's ``N`` times one dependent software f64 add
+(:func:`f64_add_latency`), K13's per chain its dependent instructions a step
+times the latency of one dependent integer operation
+(:func:`op_chain_bounds`, :func:`dependent_op_ns`). The probes' operations are SASS instructions a
+step or an element (``tools/probe_ops.py``), counted in the run.
 """
 
 from __future__ import annotations
@@ -235,3 +240,83 @@ def dadd_latency(device, steps: int = CHAIN_STEPS, reps: int = 3) -> dict:
     return {"dadd_latency_ns": (long_ - short) * 1e6 / (3 * steps),
             "dadd_latency_cycles": cycles / (4 * steps),
             "dadd_chain_steps": 4 * steps}
+
+
+def f64_add_latency(device, steps: int = 1 << 20, reps: int = 3) -> dict:
+    """The latency of one dependent software f64 add (``rx_f64_add_u32``)
+    on ``device``: K13's unrolled ``f64_add_full`` chain timed by CUDA events
+    at ``steps`` and ``4 * steps`` steps (median of ``reps`` each), their
+    difference over ``3 * steps`` (the launch drops out). The chain's bits
+    are held against the plain version first, at a few steps."""
+    import torch
+
+    from ..ops.opchain import probe_op_chain, probe_op_chain_plain, probe_state
+
+    x, y = probe_state(device)
+    if not bool(torch.equal(probe_op_chain("f64_add_full", x, y, 35),
+                            probe_op_chain_plain("f64_add_full", x, y, 35))):
+        raise AssertionError("f64_add_full differs from the plain version")
+
+    def ms(n: int) -> float:
+        times = []
+        probe_op_chain("f64_add_full", x, y, n)
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            probe_op_chain("f64_add_full", x, y, n)
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    short, long_ = ms(steps), ms(4 * steps)
+    return {"f64_add_latency_ns": (long_ - short) * 1e6 / (3 * steps),
+            "f64_add_chain_steps": 4 * steps}
+
+
+def probe_ew_bounds(pairs: int, instructions_per_pair: float) -> dict:
+    """K11 on ``pairs`` pairs: 16 bytes read and 16 written a pair, and the
+    SASS instructions of its loop a pair (an add and a subtraction, the
+    loads and stores)."""
+    return bound(pairs * 32 / PEAK_BYTES_PER_S,
+                 pairs * instructions_per_pair / PEAK_INT32_OPS)
+
+
+def probe_scan_bounds(B: int, N: int, instructions_per_add: float,
+                      add_latency_ns: float) -> dict:
+    """K12 at ``[B // 128, N, 128]``: 8 bytes read and 8 written a (tip,
+    query), the instructions of one add a (tip, query) (K13's
+    ``f64_add_full`` step, whose addend is hoisted: fewer than K12's), and
+    the chain floor, ``N`` dependent adds at ``add_latency_ns`` each."""
+    return {
+        **bound(B * N * 16 / PEAK_BYTES_PER_S,
+                B * N * instructions_per_add / PEAK_INT32_OPS),
+        "chain_floor_ms": N * add_latency_ns * 1e-6,
+    }
+
+
+def dependent_op_ns(ns_per_step_x1: float, sass: dict) -> float:
+    """The latency of one dependent integer operation: the unrolled
+    ``u32_add_x1`` chain's time a step over its dependent instructions a
+    step in ``sass`` (``tools/probe_ops.chain_sass``; ptxas fuses two of its
+    steps into one three-input add)."""
+    return ns_per_step_x1 / sass["u32_add_x1"]["dependent_per_step"]
+
+
+def op_chain_bounds(sass: dict, threads: int, iters: int, op_ns: float) -> dict:
+    """K13, ``iters`` steps of every chain of ``sass`` (``tools/probe_ops.
+    chain_sass``: instructions and dependent instructions a step) on
+    ``threads`` elements. The operations are the instructions; the bytes
+    12 an element and chain. A chain's floor is its dependent instructions
+    a step times ``op_ns``, the latency of one dependent integer operation
+    (:func:`dependent_op_ns`); ``chain_floor_ms`` sums the chains."""
+    floors = {c: iters * v["dependent_per_step"] * op_ns * 1e-6
+              for c, v in sass.items()}
+    ops = sum(v["instructions_per_step"] for v in sass.values()) * threads * iters
+    return {
+        **bound(threads * 12 * len(sass) / PEAK_BYTES_PER_S,
+                ops / PEAK_INT32_OPS),
+        "dependent_op_ns": op_ns, "chain_floor_ms_by_chain": floors,
+        "chain_floor_ms": sum(floors.values()),
+    }

@@ -13,7 +13,10 @@ bit against
 
 - the plain version (torch integer ops), on the first ``--plain-pairs``
   pairs and at ``--plain-tips`` tips;
-- hardware ``float64``: ``a + b`` and ``(a + b) - b``, on every pair;
+- hardware ``float64``: ``a + b`` and ``(a + b) - b``, on every pair (and
+  timed: ``hardware_add_ms`` is the one call ``a + b``,
+  ``hardware_add_sub_ms`` the two calls ``c = a + b; c - b``, K11's whole
+  function; no single torch call computes it);
 - K5 (``ops/exactscan.exact_cumsum``, hardware f64 in tip order) on the same
   probabilities.
 
@@ -139,6 +142,7 @@ def check_ew(a: np.ndarray, b: np.ndarray, dev: torch.device, name: str,
         "plain_pairs": n_plain, "bits_equal_plain": plain_eq,
         "ms": device_ms(lambda: xf.probe_f64_ew(*halves), dev),
         "hardware_add_ms": device_ms(lambda: ta + tb, dev),
+        "hardware_add_sub_ms": device_ms(lambda: (ta + tb) - tb, dev),
         "plain_ms_host_clock": plain_s * 1e3 if dev.type == "cuda" else "not measured",
         "first_mismatch": mism,
     }
@@ -187,6 +191,34 @@ def check_scan(B: int, N: int, dev: torch.device, seed: int,
         line["ns_per_chain_step"] = line["ms"] * 1e6 / N
         line["k5_ns_per_chain_step"] = line["k5_ms"] * 1e6 / N
         line["software_over_hardware"] = line["ms"] / line["k5_ms"]
+    return line
+
+
+def whole_space_halves(shape, dev, seed: int) -> list[torch.Tensor]:
+    """Two (hi, lo) pairs of int32 tensors of ``shape`` drawn from the whole
+    u32 space (every exponent and the sign bit), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+            for _ in range(4)]
+
+
+def check_words(dev, pairs: int, scan_shapes, seed: int) -> dict:
+    """K11 on ``pairs`` whole-space word pairs and K12 at each ``(G, N)`` of
+    ``scan_shapes`` on whole-space addends, bit for bit against their plain
+    versions (outside the contract the answer is the JAX algorithm's)."""
+    halves = whole_space_halves((pairs,), dev, seed)
+    got = xf.probe_f64_ew(*halves)
+    line = {"probe": "whole_space", "device": str(dev), "pairs": pairs,
+            "bits_equal_plain_ew": all(
+                torch.equal(g, w)
+                for g, w in zip(got, xf.probe_f64_ew_plain(*halves)))}
+    for G, N in scan_shapes:
+        ph, pl, _, _ = whole_space_halves((G, N, 128), dev, seed + N)
+        k_h, k_l = xf.probe_f64_scan(ph, pl)
+        p_h, p_l = xf.probe_f64_scan_plain(ph, pl)
+        line[f"bits_equal_plain_scan_{G}x{N}"] = (
+            torch.equal(k_h, p_h) and torch.equal(k_l, p_l))
     return line
 
 

@@ -539,3 +539,41 @@ def test_probe_op_chain_kernel_equals_plain(cuda):
                 probe_op_chain(name, x, y, iters),
                 probe_op_chain_plain(name, x, y, iters),
             ), (name, iters)
+
+
+def test_probe_op_chain_kernel_at_unroll_edges_on_whole_space_words(cuda):
+    """K13: every chain at 0, 1, U - 1, U, U + 1 and 2U + 3 steps (U the
+    kernel's unroll), on the probe's state and on whole-space words."""
+    from raxtax_tpu_torch.ops.opchain import UNROLL
+    from raxtax_tpu_torch.tools.probe_ops import EDGE_ITERS, edge_mismatches
+
+    assert EDGE_ITERS == (0, 1, UNROLL - 1, UNROLL, UNROLL + 1, 2 * UNROLL + 3)
+    assert edge_mismatches(cuda, seed=5) == []
+
+
+@pytest.mark.parametrize("n_tips", [1, 63, 65, 65_539])
+def test_probe_f64_scan_kernel_ragged_tips_on_whole_space_words(cuda, n_tips):
+    """K12 at tip counts around its ring tile (one tip, a tile less one, a
+    tile and one, many tiles and a partial last one) on whole-space words,
+    against its plain version (run on the CPU: the same function)."""
+    from raxtax_tpu_torch.ops import exactf64 as xf
+    from raxtax_tpu_torch.tools.probe_f64 import whole_space_halves
+
+    assert xf.SCAN_TILE == 64
+    G = 2 if n_tips < 1000 else 1
+    ph, pl, _, _ = whole_space_halves((G, n_tips, 128), cuda, n_tips)
+    oh, ol = xf.probe_f64_scan(ph, pl)
+    w_h, w_l = xf.probe_f64_scan_plain(ph.cpu(), pl.cpu())
+    assert torch.equal(oh.cpu(), w_h) and torch.equal(ol.cpu(), w_l)
+
+
+def test_probe_f64_ew_kernel_equals_plain_on_whole_space_words(cuda):
+    """K11 on word pairs drawn from the whole u32 space (every exponent and
+    the sign bit), against its plain version: outside the contract the
+    answer is the JAX algorithm's."""
+    from raxtax_tpu_torch.ops import exactf64 as xf
+    from raxtax_tpu_torch.tools.probe_f64 import whole_space_halves
+
+    halves = whole_space_halves((1 << 20,), cuda, 6)
+    for g, w in zip(xf.probe_f64_ew(*halves), xf.probe_f64_ew_plain(*halves)):
+        assert torch.equal(g, w)

@@ -188,8 +188,9 @@ def test_wrappers_never_take_the_plain_version_for_a_cuda_tensor(monkeypatch):
 
 def test_the_new_kernel_sources_are_listed_for_the_build(tmp_path, monkeypatch):
     """Every ``csrc/*.cu`` is a build target, the wrappers name the C entry
-    points their sources export, and every shared header goes into every
-    library's name, so an edited header never leaves a stale build."""
+    points their sources export, and every header a source includes goes
+    into its library's name, so an edited header never leaves a stale build
+    and rebuilds only the libraries that include it."""
     from raxtax_tpu_torch.ops import _build
 
     stems = {p.stem for p in (PKG / "csrc").glob("*.cu")}
@@ -208,7 +209,12 @@ def test_the_new_kernel_sources_are_listed_for_the_build(tmp_path, monkeypatch):
     for f in (PKG / "csrc").iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    before = {s: _build._lib_path(s) for s in _build.KERNEL_SOURCES}
-    (csrc / "exactf64.cuh").write_text((csrc / "exactf64.cuh").read_text() + "\n")
-    after = {s: _build._lib_path(s) for s in _build.KERNEL_SOURCES}
-    assert all(before[s] != after[s] for s in before)
+    for header, includers in (
+        ("exactf64.cuh", {"probe_f64", "probe_ops"}),
+        ("fold_ring.cuh", {"fold_planes", "fold_sparse"}),
+        ("rx_common.cuh", set(_build.KERNEL_SOURCES)),  # fold_ring includes it
+    ):
+        before = {s: _build._lib_path(s) for s in _build.KERNEL_SOURCES}
+        (csrc / header).write_text((csrc / header).read_text() + "\n")
+        after = {s: _build._lib_path(s) for s in _build.KERNEL_SOURCES}
+        assert {s for s in before if before[s] != after[s]} == includers, header
