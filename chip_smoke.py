@@ -12,7 +12,12 @@ It needs no arguments, no network and no JAX. It
    against the host oracle, for every flag combination (``path_65k``),
 3. drives the double-f32 path with the sparse fold on the same database the
    same way, plus one short run each with the bit-major scan and with
-   ``significance="auto"`` (``path_65k_dd``),
+   ``significance="auto"`` (``path_65k_dd``); then two batches each without
+   the unit/wide split (``RAXTAX_SPLIT2=0``, ``path_65k_split2_off``), with
+   the single-tip split on the tip-order and on the bit-major scan
+   (``RAXTAX_SPLIT_SIG=1``, ``path_65k_split_sig``), both against the oracle,
+   and with ``--descent device``, held against the exact descent on every
+   query that one did not replay on the host (``path_65k_descent_device``),
 4. drives the other ways to make the counts on that database, each against
    the oracle and through every flag combination: the stream fold
    (``path_65k_stream``), the gathered-rows fold (``path_65k_gathered``) and
@@ -46,7 +51,13 @@ It needs no arguments, no network and no JAX. It
     (``probe_f64``),
 11. fuzzes the engine against the oracle through ``tools/fuzz_hardware.py``
     for about a minute, at least 24 trials (``fuzz``),
-12. sweeps whole CLI runs through ``tools/runtime_memory.py`` on a synthetic
+12. runs the CLI with ``--trace DIR`` on a 20,000-record synthetic FASTA in
+    a child and finds K1's kernel in the trace (``trace``, after the 65,536
+    phases), and the bench ``tools/bench.py`` in a child under what is left
+    of the budget, echoing its JSON lines: the 65,536-reference line with
+    every pass, the 1,000,000-reference line when the budget allows
+    (``bench``),
+13. sweeps whole CLI runs through ``tools/runtime_memory.py`` on a synthetic
     FASTA from ``tools/make_synth_fasta.py``, one rep at 50,000 records and
     one at the largest of 1M / 500k / 200k the budget allows: runtime, peak
     host RSS, steady queries/s, exit code (``runtime_memory``).
@@ -146,18 +157,20 @@ def max_abs_err(a, b) -> float:
 def args_for(skip: bool = False, raw: bool = False, dd: bool = False,
              significance: str | None = None, bm_scan: bool = False,
              backend: str = "auto", fold: str | None = None,
-             split_sig: bool = False):
+             split_sig: bool = False, split2: bool = True,
+             descent: str = "exact"):
     """The parsed command line of ``raxtax-torch --tsv --batch-size 256
     --debug-checks`` (output prefix and database path are set per run).
     ``dd`` is what ``RAXTAX_EXACT=0 RAXTAX_SPARSE_FOLD=1`` select, ``fold``
     what ``RAXTAX_FUSED_GATHER=0`` or ``--backend stream`` select,
-    ``backend="xla"`` the dense-count backend."""
+    ``backend="xla"`` the dense-count backend, ``split2=False`` what
+    ``RAXTAX_SPLIT2=0`` selects, ``descent`` the ``--descent`` flag."""
     return SimpleNamespace(
         backend=backend, device="cuda", batch_size=BATCH, debug_checks=True,
         tsv=True, skip_exact_matches=skip, raw_confidence=raw, redo=True,
         significance=significance or ("dd" if dd else "exact"),
         fold=fold or ("sparse" if dd else "dense"), bm_scan=bm_scan,
-        split_sig=split_sig,
+        split_sig=split_sig, split2=split2, descent=descent,
     )
 
 
@@ -511,10 +524,10 @@ def scan_compare(name: str, probs32: torch.Tensor, packed: bool) -> dict:
     }
 
 
-def phase_path_65k_dd(db, queries):
-    """The double-f32 path with the sparse fold at 65,536 references:
-    ``(the phase's line, K7's comparison at the packed shape)``."""
-    from raxtax_tpu_torch.db.database import ensure_kmer_layout
+def phase_path_65k_dd(db, packed, queries):
+    """The double-f32 path with the sparse fold at 65,536 references
+    (``packed``: the same database in the packed layout, for the bit-major
+    scan): ``(the phase's line, K7's comparison at the packed shape)``."""
     from raxtax_tpu_torch.engine.classify import make_classifier
 
     n_batches = -(-len(queries) // BATCH)
@@ -559,9 +572,6 @@ def phase_path_65k_dd(db, queries):
     line["flag_combos"] = flag_combos(db, queries, dd=True)
 
     # the bit-major scan (K7) reads the packed layout: one short run
-    import copy
-
-    packed = ensure_kmer_layout(copy.copy(db), "packed")
     short = queries[: 2 * BATCH]
     a = args_for(dd=True, bm_scan=True)
     clf = make_classifier(packed, a, n_queries_hint=len(short))
@@ -576,7 +586,7 @@ def phase_path_65k_dd(db, queries):
     k7 = scan_compare(
         "dd_cumsum_bitmajor", world_probs32(packed, short, clf.state), packed=True
     )
-    del packed, clf
+    del clf
 
     # "auto": starts on the double-f32 path; flips only under dense replays
     a = args_for(dd=True, significance="auto")
@@ -680,6 +690,123 @@ def phase_path_65k_xla(db, queries) -> dict:
     del clf
     torch.cuda.empty_cache()
     return line
+
+
+class _CountSplit:
+    """Counts the calls of the single-tip split compaction
+    (``nodeconf._compact_split``) inside the ``with`` block."""
+
+    def __enter__(self):
+        from raxtax_tpu_torch.ops import nodeconf
+
+        self.calls, self._orig = 0, nodeconf._compact_split
+
+        def counted(*a):
+            self.calls += 1
+            return self._orig(*a)
+
+        nodeconf._compact_split = counted
+        return self
+
+    def __exit__(self, *exc):
+        from raxtax_tpu_torch.ops import nodeconf
+
+        nodeconf._compact_split = self._orig
+
+
+def option_run(phase: str, db, queries, a, n_check: int = 16):
+    """One run of ``run_queries`` in the mode ``a`` with the launch counts
+    read around it; every query has output lines and the first ``n_check``
+    are the oracle's: ``(the classifier, its line)``."""
+    from raxtax_tpu_torch.engine.classify import make_classifier
+
+    clf = make_classifier(db, a, n_queries_hint=len(queries))
+    reset_counts()
+    with _CountSplit() as split:
+        outs, tsvs, dt = run_path(db, queries, a, classifier=clf)
+    counts = read_counts()
+    if set(outs) != {l for l, _ in queries}:
+        raise AssertionError(f"{phase}: not every query has output lines")
+    checked = check_oracle(db, queries, outs, tsvs, n_check)
+    n_batches = -(-len(queries) // BATCH)
+    scan = "dd_cumsum_bitmajor" if a.bm_scan else "dd_cumsum"
+    for k in ("planes_hist", "planes_probs", "planes_high", scan,
+              "fold_planes_sparse"):
+        if counts[k] < n_batches:
+            raise AssertionError(
+                f"{phase}: {k} launched {counts[k]} times in {n_batches} batches")
+    return clf, {
+        "queries": len(queries), "layout": clf.state.layout,
+        "pass_s": round(dt, 3), "queries_per_s": round(len(queries) / dt, 2),
+        "oracle_checked": checked, "launches": counts,
+        "split_compactions": split.calls, "host_replays": clf.host_replays,
+    }
+
+
+def phase_path_65k_split2_off(db, queries) -> dict:
+    """``RAXTAX_SPLIT2=0`` on the double-f32 path with the sparse fold: no
+    unit/wide split, every eval node through the plain compaction."""
+    a = args_for(dd=True, split2=False)
+    clf, line = option_run("path_65k_split2_off", db, queries, a)
+    if clf.state.split2 is not None or line["split_compactions"]:
+        raise AssertionError("path_65k_split2_off: a split compaction ran")
+    del clf
+    return {"phase": "path_65k_split2_off", "refs": db.num_tips,
+            "batch": BATCH, **line}
+
+
+def phase_path_65k_split_sig(db, packed, queries) -> dict:
+    """``RAXTAX_SPLIT2=0 RAXTAX_SPLIT_SIG=1`` on the double-f32 path: the
+    single-tip split on the tip-order scan (K6) of the flat database, then on
+    the bit-major scan (K7) of its packed copy."""
+    line = {"phase": "path_65k_split_sig", "refs": db.num_tips, "batch": BATCH}
+    n_batches = -(-len(queries) // BATCH)
+    for name, world, bm in (("tip_order", db, False), ("bm_scan", packed, True)):
+        a = args_for(dd=True, split2=False, split_sig=True, bm_scan=bm)
+        clf, run = option_run(f"path_65k_split_sig {name}", world, queries, a)
+        if clf.state.split_sig is None or run["split_compactions"] < n_batches:
+            raise AssertionError(
+                f"path_65k_split_sig {name}: {run['split_compactions']} split "
+                f"compactions in {n_batches} batches")
+        if bm and run["launches"]["dd_cumsum"]:
+            raise AssertionError("path_65k_split_sig bm_scan: K6 launched")
+        line[name] = run
+        del clf
+    return line
+
+
+def phase_path_65k_descent_device(db, queries) -> dict:
+    """``--descent device`` on the double-f32 path through ``run_queries``
+    (no host replay), then both descents on the same batches: their lines
+    are equal on every query the exact run did not replay on the host."""
+    from raxtax_tpu_torch.engine.classify import make_classifier
+    from raxtax_tpu_torch.tools.compare_descents import compare_descents
+
+    a = args_for(dd=True, descent="device")
+    clf = make_classifier(db, a, n_queries_hint=len(queries))
+    reset_counts()
+    outs, _, dt = run_path(db, queries, a, classifier=clf)
+    counts = read_counts()
+    if set(outs) != {l for l, _ in queries}:
+        raise AssertionError("path_65k_descent_device: missing output lines")
+    if clf.host_replays:
+        raise AssertionError(
+            f"path_65k_descent_device: {clf.host_replays} host replays")
+    n_batches = -(-len(queries) // BATCH)
+    for k in DD_PATH + ("fold_planes_sparse",):
+        if counts[k] < n_batches:
+            raise AssertionError(f"path_65k_descent_device: launches {counts}")
+    del clf
+    cmp = compare_descents(db, queries, BATCH, "cuda", fold="sparse")
+    if cmp["differ"] or cmp["host_replays_device"]:
+        raise AssertionError(f"path_65k_descent_device: {json.dumps(cmp)}")
+    if cmp["compared"] + cmp["replayed_by_exact"] != len(queries):
+        raise AssertionError(f"path_65k_descent_device: {json.dumps(cmp)}")
+    torch.cuda.empty_cache()
+    return {"phase": "path_65k_descent_device", "refs": db.num_tips,
+            "batch": BATCH, "queries": len(queries), "pass_s": round(dt, 3),
+            "queries_per_s": round(len(queries) / dt, 2), "launches": counts,
+            "same_batches": cmp}
 
 
 def fold_variants(state, queries, k1_planes, inputs) -> list[dict]:
@@ -1379,6 +1506,92 @@ def phase_fuzz() -> dict:
             "launches": counts}
 
 
+#: records of the trace phase's synthetic FASTA, and its queries (the first
+#: records again: every query has an exact match)
+TRACE_RECORDS, TRACE_QUERIES = 20_000, 512
+#: seconds the bench leaves to the runtime / memory sweep after it
+SWEEP_RESERVE_S = 180.0
+
+
+def _cli_cmd(*args) -> list[str]:
+    return [sys.executable, "-m", "raxtax_tpu_torch.cli", *map(str, args)]
+
+
+def phase_trace() -> dict:
+    """The CLI with ``--trace DIR`` on a synthetic FASTA, in a child process
+    as a user runs it: exit 0, every query in ``raxtax.out``, and a profiler
+    trace in DIR that names K1's kernel of ``csrc/``."""
+    from raxtax_tpu_torch.tools.make_synth_fasta import write_synth_fasta
+    from raxtax_tpu_torch.utils.trace import csrc_kernels_in, trace_files
+
+    with tempfile.TemporaryDirectory() as tmp:
+        refs, qf = Path(tmp) / "refs.fasta", Path(tmp) / "queries.fasta"
+        write_synth_fasta(TRACE_RECORDS, str(refs))
+        qf.write_text("".join(refs.read_text().splitlines(True)[: 2 * TRACE_QUERIES]))
+        out, tr = Path(tmp) / "out", Path(tmp) / "trace"
+        t0 = time.time()
+        r = subprocess.run(
+            _cli_cmd("-d", refs, "-i", qf, "-o", out, "--batch-size", BATCH,
+                     "--trace", tr),
+            capture_output=True, text=True, timeout=600,
+            cwd=str(Path(__file__).resolve().parent),
+        )
+        dt = time.time() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"trace: exit {r.returncode}\n{r.stderr[-4000:]}")
+        labels = {l.split("\t", 1)[0] for l in (out / "raxtax.out").read_text().splitlines()}
+        files = trace_files(tr)
+        found = csrc_kernels_in(tr)
+        if len(labels) != TRACE_QUERIES or not files:
+            raise AssertionError(f"trace: {len(labels)} queries, files {files}")
+        if "fold_planes_kernel" not in found:
+            raise AssertionError(f"trace: no K1 kernel among {found}")
+        return {"phase": "trace", "records": TRACE_RECORDS,
+                "queries": TRACE_QUERIES, "seconds": round(dt, 2),
+                "trace_files": [f.name for f in files],
+                "trace_bytes": sum(f.stat().st_size for f in files),
+                "csrc_kernels": found}
+
+
+def phase_bench() -> list[dict]:
+    """``python -m raxtax_tpu_torch.tools.bench`` in a child process, under
+    what is left of the budget less the sweep's reserve, with its database
+    cache in a temporary directory: its JSON lines. The 65,536-reference
+    line must be there with every pass; the 1M line comes when the budget
+    allows."""
+    from raxtax_tpu_torch.tools import bench
+
+    budget = remaining() - SWEEP_RESERVE_S
+    torch.cuda.empty_cache()  # the bench runs in a child with its own context
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, RAXTAX_BENCH_BUDGET=str(int(budget)),
+                   RAXTAX_BENCH_CACHE_DIR=tmp)
+        for name in ("RAXTAX_BENCH_REFS", "RAXTAX_BENCH_QUERIES",
+                     "RAXTAX_BENCH_BATCH", "RAXTAX_BENCH_BACKEND",
+                     "RAXTAX_BENCH_REPS", "RAXTAX_BENCH_ORACLE_QUERIES"):
+            env.pop(name, None)
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "raxtax_tpu_torch.tools.bench"],
+            capture_output=True, text=True, env=env, timeout=budget + 120,
+            cwd=str(Path(__file__).resolve().parent),
+        )
+        dt = time.time() - t0
+    sys.stderr.write(r.stderr[-6000:])
+    lines = [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")]
+    by_refs = {l["metric"]: l for l in lines}
+    small = by_refs.get("classify_throughput_65536ref_db")
+    reps = bench.config({}).reps
+    if r.returncode != 0 or small is None or len(small["pass_s"]) != reps:
+        raise AssertionError(
+            f"bench: exit {r.returncode}, lines {lines}\n{r.stderr[-3000:]}")
+    for l in lines:
+        if l["unit"] != "queries/s/gpu" or not l["value"] > 0:
+            raise AssertionError(f"bench: {l}")
+    note(f"bench: {len(lines)} lines in {dt:.1f}s (budget {budget:.0f}s)")
+    return lines
+
+
 def phase_runtime_memory(per_ref_s: float) -> dict:
     """``tools/runtime_memory.py``, one rep, at 50,000 records and at the
     largest of 1M / 500k / 200k records that the budget left allows (judged
@@ -1448,12 +1661,23 @@ def main() -> int:
     p65 = phase_path_65k(db, queries, build_s)
     per_ref_s = p65.pop("build_s_per_ref")
     say(p65)
-    p65_dd, k7_on_path = phase_path_65k_dd(db, queries)
+    import copy
+
+    from raxtax_tpu_torch.db.database import ensure_kmer_layout
+
+    packed = ensure_kmer_layout(copy.copy(db), "packed")
+    p65_dd, k7_on_path = phase_path_65k_dd(db, packed, queries)
     say(p65_dd)
+    short = queries[: 2 * BATCH]
+    say(phase_path_65k_split2_off(db, short))
+    say(phase_path_65k_split_sig(db, packed, short))
+    del packed
+    say(phase_path_65k_descent_device(db, short))
     say(phase_path_65k_fold(db, queries, "stream"))
     say(phase_path_65k_fold(db, queries, "gathered"))
     say(phase_path_65k_xla(db, queries))
     del db
+    say(phase_trace())
     kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla = phase_path_large(
         per_ref_s)
     per_ref_s_large = p1m["db_build_s"] / p1m["refs"]
@@ -1463,7 +1687,13 @@ def main() -> int:
     say(p1m_dd)
     say(p1m_xla)
     say(phase_fuzz())
-    note("fuzz done; the runtime / memory sweep")
+    note("fuzz done; the bench")
+    bench_lines = phase_bench()
+    for line in bench_lines:
+        say(line)
+    say({"phase": "bench", "lines": len(bench_lines),
+         "metrics": [l["metric"] for l in bench_lines]})
+    note("bench done; the runtime / memory sweep")
     say(phase_runtime_memory(per_ref_s_large))
     # launches: from the main path that runs the kernel — the exact path at
     # full size (with the dense, the stream and the gathered fold), the

@@ -11,19 +11,25 @@ here and nowhere else in the package (:func:`engine_mode_from_env`):
 ``RAXTAX_EXACT`` (``1`` exact f64, ``0`` double-f32, ``auto`` double-f32 until
 host replays become dense), ``RAXTAX_SPARSE_FOLD`` (``1`` block-sparse fold),
 ``RAXTAX_FUSED_GATHER`` (``0``, with the sparse fold off: gather the rows,
-then fold them), ``RAXTAX_BM_SCAN`` (``1`` bit-major scan) and
-``RAXTAX_SPLIT_SIG`` (``1``: the single-tip split of the ``xla`` backend).
-Unset, they leave the port's defaults: exact significance, dense fold.
+then fold them), ``RAXTAX_BM_SCAN`` (``1`` bit-major scan),
+``RAXTAX_SPLIT2`` (``0`` or empty: no unit/wide split on the planes backends;
+unset means on, as in the JAX package) and ``RAXTAX_SPLIT_SIG`` (``1``: the
+single-tip split, taken by the ``xla`` backend and, where the unit/wide split
+does not run, by the planes backends). Unset, they leave the port's defaults:
+exact significance, dense fold, unit/wide split.
 
 ``--backend`` picks how counts are made: ``auto`` and ``pallas`` fold counter
 planes (the fold named by the environment), ``stream`` folds them from
 row-sorted pairs, ``xla`` builds a dense count matrix from the ref-major
 matrix (double-f32 significance only), ``oracle`` runs on the host.
 
-Flags of the JAX package whose code paths are not ported yet (meshes,
-multi-process runs, the on-device f32 descent, profiler traces) are still
-parsed, and exit with a "not yet ported" error rather than silently running
-a single-device job.
+``--descent device`` accepts the double-f32 paths' on-device descents
+without proof; ``--trace DIR`` writes a ``torch.profiler`` trace of the
+classification phase into ``DIR`` (TensorBoard / Perfetto JSON).
+
+Flags of the JAX package whose code paths are not ported yet (meshes and
+multi-process runs) are still parsed, and exit with a "not yet ported" error
+rather than silently running a single-device job.
 """
 
 from __future__ import annotations
@@ -131,16 +137,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "mass, k-mer bounds, confidence ranges); mirrors the reference's "
         "debug asserts. Off by default: zero overhead",
     )
-    # --- parsed, not ported yet (see NOT_PORTED) ---
-    p.add_argument("--mesh", type=str, default="", help="not ported yet")
     p.add_argument(
         "--descent", choices=["exact", "device"], default="exact",
-        help="exact (default); device is not ported yet",
+        help="Fallback-descent mode of the double-f32 paths: exact (proved "
+        "on the device or replayed on the host in f64, bit-faithful to the "
+        "reference) or device (the device's f32 descent as it ends; exact "
+        "ties can resolve differently)",
     )
     p.add_argument(
         "--trace", type=Path, default=None, metavar="DIR",
-        help="not ported yet",
+        help="Write a torch.profiler trace of the classification phase to "
+        "DIR (view with TensorBoard / Perfetto)",
     )
+    # --- parsed, not ported yet (see not_ported) ---
+    p.add_argument("--mesh", type=str, default="", help="not ported yet")
     p.add_argument("--coordinator", type=str, default="", help="not ported yet")
     p.add_argument("--num-processes", type=int, default=0, help="not ported yet")
     p.add_argument("--process-id", type=int, default=-1, help="not ported yet")
@@ -167,6 +177,8 @@ def engine_mode_from_env(environ=None) -> dict:
         "significance": {"": "exact", "1": "exact", "0": "dd", "auto": "auto"}[exact],
         "fold": fold,
         "bm_scan": env.get("RAXTAX_BM_SCAN", "") not in ("", "0"),
+        # the JAX engine's own reading: unset is on, empty or 0 is off
+        "split2": env.get("RAXTAX_SPLIT2", "1") not in ("", "0"),
         "split_sig": env.get("RAXTAX_SPLIT_SIG", "") not in ("", "0"),
     }
 
@@ -179,8 +191,6 @@ def not_ported(args) -> str | None:
         (bool(args.num_processes), "--num-processes"),
         (args.process_id >= 0, "--process-id"),
         (args.global_mesh, "--global-mesh"),
-        (args.descent == "device", "--descent device"),
-        (args.trace is not None, "--trace"),
     ]
     for hit, name in checks:
         if hit:
@@ -337,7 +347,13 @@ def main(argv: list[str] | None = None) -> int:
 
         writer = ResultWriter(writers)
         try:
-            run_queries(db, queries, args, writer)
+            if args.trace is not None:
+                from .utils.trace import classification_trace
+
+                with classification_trace(args.trace, args.device):
+                    run_queries(db, queries, args, writer)
+            else:
+                run_queries(db, queries, args, writer)
         except Exception as e:
             writer.join()
             report_error(

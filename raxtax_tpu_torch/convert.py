@@ -21,6 +21,7 @@ import torch
 from .db.database import Database, ExactIndex
 from .db.taxonomy import NODE_INNER, Taxonomy
 from .ops.intersect_fold import prepare_kmer_major, prepare_kmer_major_sparse
+from .ops.nodeconf import bitmajor_evalpos
 
 
 def database_fields(db) -> dict:
@@ -113,21 +114,23 @@ class DeviceState:
     #: [N, 2048] int32 ref-major presence rows (dense-count backend only)
     ref_bits: torch.Tensor | None = None
     #: (inner_starts, inner_ends, inner_pos, evalpos_of_tip), the single-tip
-    #: split of the dense-count significance stage, or None
+    #: split of the double-f32 significance stage, or None; with ``bm_scan``
+    #: ``evalpos_of_tip`` is in the bit-major flat order K7's output has
     split_sig: tuple | None = None
 
 
 def device_state(
     db: Database, device, split2: bool = True, sparse: bool = False,
-    dense_counts: bool = False, split_sig: bool = False,
+    dense_counts: bool = False, split_sig: bool = False, bm_scan: bool = False,
 ) -> DeviceState:
     """Upload the resident state. The descent CSR is in GLOBAL node space:
     the reference's ``max_by`` ranges over all children, childless Sequence
     nodes included (src/lineage.rs:154-170). With ``sparse`` the matrix is
     padded to whole 8 x 128-word blocks and its block CSR is kept on the
     host; the other folds run on the same copy. With ``dense_counts`` the
-    ref-major matrix is uploaded in place of the postings matrix (and
-    ``split_sig`` adds the single-tip split of its significance stage)."""
+    ref-major matrix is uploaded in place of the postings matrix.
+    ``split_sig`` adds the single-tip split of the double-f32 significance
+    stage, remapped for the bit-major scan with ``bm_scan``."""
     dev = torch.device(device)
     tax = db.taxonomy
 
@@ -150,16 +153,17 @@ def device_state(
     pad_node = tax.n_nodes - 1  # the last created node is a Sequence leaf
     assert tax.node_type[pad_node] != NODE_INNER
     blk_ptr = blk_ids = kmer_major3 = ref_bits = split_one = None
+    if split_sig:
+        split_one = tuple(up(a, torch.int64) for a in tax.split_sig_arrays())
     if dense_counts:
         ref_bits = up(np.ascontiguousarray(db.ref_major).view(np.int32))
-        if split_sig:
-            split_one = tuple(
-                up(a, torch.int64) for a in tax.split_sig_arrays()
-            )
     elif sparse:
         kmer_major3, blk_ptr, blk_ids = prepare_kmer_major_sparse(db, dev)
     else:
         kmer_major3 = prepare_kmer_major(db, dev)
+    if split_one is not None and bm_scan:
+        split_one = (*split_one[:3], bitmajor_evalpos(
+            split_one[3], int(kmer_major3.shape[1])))
     return DeviceState(
         device=dev,
         num_tips=db.num_tips,

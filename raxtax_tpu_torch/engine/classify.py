@@ -26,8 +26,8 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
     'pallas' fold counter planes in the mode ``args.significance`` /
     ``args.fold`` / ``args.bm_scan`` name (the engine's defaults where they
     are absent); 'stream' takes the stream fold; 'xla' builds dense counts
-    from the ref-major matrix (``args.split_sig`` picks its single-tip
-    split)."""
+    from the ref-major matrix. ``args.split2`` / ``args.split_sig`` pick the
+    double-f32 stage's compaction, ``args.descent`` its descent."""
     backend = getattr(args, "backend", "auto")
     if backend == "oracle":
         return OracleClassifier(
@@ -53,7 +53,9 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
         fold=fold,
         bm_scan=getattr(args, "bm_scan", False),
         counts="dense" if backend == "xla" else "planes",
-        split_sig=backend == "xla" and getattr(args, "split_sig", False),
+        split2=getattr(args, "split2", True),
+        split_sig=getattr(args, "split_sig", False),
+        descent=getattr(args, "descent", "exact"),
     )
 
 

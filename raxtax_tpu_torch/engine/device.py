@@ -37,6 +37,12 @@ always the double-f32 one (the exact-f64 kernels read planes). Host replays
 read the nibble wire (``compress_counts``) once replays have been dense, else
 gathered u16 count rows.
 
+``descent="device"`` (double-f32 paths only) accepts every device descent as
+it ends, with no margin test, no batched host descent and no risk-band
+replay: no count row leaves the device, but an exact tie may resolve
+otherwise than in the reference's f64 (the JAX package's ``--descent
+device``). The exact-f64 path descends on exact values either way.
+
 All O(num_refs) work runs on the device; the host touches histograms,
 (K+1)-sized tables, the compacted significant set and the replayed rows.
 """
@@ -224,6 +230,9 @@ class DeviceClassifier:
     #: dd path: feed the scan bit-major probabilities (K7) and take the
     #: plain eval-node compaction, as the JAX package's RAXTAX_BM_SCAN does
     bm_scan: bool = False
+    #: "exact": the double-f32 paths prove or replay every descent on the
+    #: host; "device": they accept the device's f32 descent as it ends
+    descent: str = "exact"
     #: the batch being prepared runs the exact-f64 path (sticky once set)
     _exact_mode: bool = field(default=True, repr=False)
     #: which kernel folds the postings: "dense" (K1), "sparse" (K2),
@@ -245,7 +254,8 @@ class DeviceClassifier:
     #: the last finalized batch replayed at least half of its queries on
     #: the host (the condition that flips "auto" to the exact path)
     _fb_dense: bool = field(default=False, repr=False)
-    #: queries whose descents were replayed on the host in the last batch
+    #: batch positions of the queries the host replayed (a descent or a
+    #: risk-band confidence) in the last finalized double-f32 batch
     _replayed_queries: set = field(default_factory=set, repr=False)
     #: queries replayed on the host (risk band or descent) since creation
     host_replays: int = 0
@@ -290,6 +300,7 @@ class DeviceClassifier:
         bm_scan: bool = False,
         counts: str = "planes",
         split_sig: bool = False,
+        descent: str = "exact",
     ) -> "DeviceClassifier":
         """Upload the database and build the classifier. ``device`` defaults
         to the GPU and raises when there is none; pass ``"cpu"`` to run the
@@ -302,8 +313,12 @@ class DeviceClassifier:
         count matrix from the ref-major matrix instead of folding planes
         (``fold``, ``split2`` and ``bm_scan`` are then unused and the
         significance stage is the double-f32 one whatever ``significance``
-        says); ``split_sig`` reads its single-tip eval nodes straight from
-        the probabilities."""
+        says). ``split_sig`` reads the single-tip eval nodes of the
+        double-f32 stage straight from the probabilities where the unit/wide
+        split does not run: with dense counts, with ``split2=False``, or on
+        the bit-major scan (the JAX package's ``RAXTAX_SPLIT_SIG`` with
+        ``RAXTAX_SPLIT2``); elsewhere it is not uploaded. ``descent="device"`` accepts the double-f32
+        paths' device descents without proof (see the module note)."""
         if significance not in ("exact", "dd", "auto"):
             raise ValueError(f"unknown significance mode {significance!r}")
         if fold not in ("dense", "sparse", "gathered", "stream"):
@@ -317,11 +332,8 @@ class DeviceClassifier:
                 "but this database was built without it; rebuild the "
                 "database or pick another backend"
             )
-        if split_sig and not dense:
-            raise ValueError(
-                "split_sig belongs to the dense-count backend; the planes "
-                "backends take the unit/wide split (split2)"
-            )
+        if descent not in ("exact", "device"):
+            raise ValueError(f"unknown descent {descent!r}")
         bm_scan = bm_scan and not dense
         if bm_scan and significance != "exact" and db.kmer_layout != "packed":
             raise ValueError(
@@ -329,10 +341,16 @@ class DeviceClassifier:
                 f"holds the {db.kmer_layout} one"
             )
         dev = resolve_device(device)
+        # the single-tip split is uploaded only where a compaction reads it
+        # (significant_nodes_planes' precedence: split2 wins on the tip-order
+        # scan; the exact-f64 path never reads it)
+        split_sig = split_sig and (
+            dense or (significance != "exact" and (not split2 or bm_scan))
+        )
         state = device_state(
             db, dev, split2=split2 and not dense,
             sparse=fold == "sparse" and not dense,
-            dense_counts=dense, split_sig=split_sig,
+            dense_counts=dense, split_sig=split_sig, bm_scan=bm_scan,
         )
         n_padded = db.num_tips if dense else int(
             state.kmer_major3.shape[1] * state.kmer_major3.shape[2]
@@ -351,6 +369,7 @@ class DeviceClassifier:
             bm_scan=bool(bm_scan),
             fold=fold,
             counts=counts,
+            descent=descent,
         )
         self._exact_mode = significance == "exact" and not dense
         self._sparse = fold == "sparse" and not dense
@@ -535,7 +554,7 @@ class DeviceClassifier:
             planes, table, st.node_starts, st.node_ends,
             over_idx=over_idx, over_val=over_val, bm_scan=self.bm_scan,
             layout=st.layout, split2=st.split2, sideband=st.sideband,
-            num_tips=self.db.num_tips,
+            num_tips=self.db.num_tips, split=st.split_sig,
         )
 
     def prepare_batch(self, state: _Submitted) -> _Prepared:
@@ -548,14 +567,14 @@ class DeviceClassifier:
         t_start = time.perf_counter()
         ks, s_max, n_real, planes = state.ks, state.s_max, state.n_real, state.planes
         st = self.state
-        B = self.batch_size
         exact_mode = self._exact_mode
         wire = None
         dense = self.counts == "dense"
         if dense:
             # the nibble wire, once host replays have been dense; sparse
-            # replays gather u16 count rows per query instead
-            if self._fb_dense:
+            # replays gather u16 count rows per query instead. A device
+            # descent replays nothing
+            if self._fb_dense and self.descent == "exact":
                 wire = compress_counts(planes)
         elif not exact_mode and not self._mux_dense:
             # the overflow lists feed the low-bit lookup's fix-up on the
@@ -585,7 +604,26 @@ class DeviceClassifier:
                         f"query's {ks[b]} distinct k-mers (query {b})"
                     )
 
-        # host f64 stage: per-size probabilities + global signal
+        table64, tables64, global_signals, signal_risky = self._host_model(
+            hist, ks, n_real, s_max
+        )
+        sig, cum0, table = self._dispatch_significance(
+            planes, table64, exact_mode, wire
+        )
+        self.phase_seconds["prepare"] += time.perf_counter() - t_start
+        return _Prepared(
+            labels=state.labels, seqs=state.seqs, exact=state.exact,
+            n_real=n_real, planes=planes, tables64=tables64,
+            global_signals=global_signals, signal_risky=signal_risky,
+            sig=sig, cum0=cum0, exact_mode=exact_mode, wire=wire,
+            sig_wire=None if dense else wire, table=table,
+        )
+
+    def _host_model(self, hist: np.ndarray, ks: list, n_real: int, s_max: int):
+        """The host f64 stage of phase B: ``(table64 [B, s_max], per-query
+        tables, global signals, queries whose signal sits on a rounding
+        boundary)``."""
+        B = self.batch_size
         table64 = np.zeros((B, s_max), dtype=np.float64)
         tables64: list[np.ndarray | None] = [None] * B
         global_signals = np.zeros(B, dtype=np.float64)
@@ -600,30 +638,28 @@ class DeviceClassifier:
             frac = (global_signals[b] * 1e5) % 1.0
             if abs(frac - 0.5) < SIGNAL_RISK_MARGIN or self.force_signal_replay:
                 signal_risky.append(b)
+        return table64, tables64, global_signals, signal_risky
 
-        table = None
+    def _dispatch_significance(self, planes, table64: np.ndarray,
+                               exact_mode: bool, wire):
+        """Queue the table lookup, the scan and the threshold masks of phase
+        B: ``(sig, cum0, f32 table on the device or None)``."""
+        st = self.state
         if exact_mode:
             sig, cum0 = significant_nodes_exact(
                 planes, self._to_device(table64), st.node_starts, st.node_ends,
                 split2=st.split2, layout=st.layout, num_tips=self.db.num_tips,
             )
-        elif dense:
-            table = self._to_device(table64.astype(np.float32))
+            return sig, cum0, None
+        table = self._to_device(table64.astype(np.float32))
+        if self.counts == "dense":
             sig, cum0 = significant_nodes(
                 planes, table, st.node_starts, st.node_ends,
                 split=st.split_sig,
             )
         else:
-            table = self._to_device(table64.astype(np.float32))
             sig, cum0 = self._significant_dd(planes, table, wire)
-        self.phase_seconds["prepare"] += time.perf_counter() - t_start
-        return _Prepared(
-            labels=state.labels, seqs=state.seqs, exact=state.exact,
-            n_real=n_real, planes=planes, tables64=tables64,
-            global_signals=global_signals, signal_risky=signal_risky,
-            sig=sig, cum0=cum0, exact_mode=exact_mode, wire=wire,
-            sig_wire=None if dense else wire, table=table,
-        )
+        return sig, cum0, table
 
     def _exact_row(self, b: int, planes) -> np.ndarray:
         """One query's exact count row in tip order, decoded on the device
@@ -789,7 +825,8 @@ class DeviceClassifier:
         accepted only when its margin PROVES the f32 argmax equals the
         reference's f64 one. Marginal sites — exact ties, near-ties — and
         sites of queries whose f64 prefix sums are in ``cum_cache`` already
-        replay on the host."""
+        replay on the host. ``descent="device"`` skips the host pass and
+        accepts every device result."""
         self._replayed_queries = set()
         if not sites:
             return {}
@@ -803,7 +840,8 @@ class DeviceClassifier:
             return {s: int(f) for s, f in zip(sites, finals)}
 
         fallback_map: dict = {}
-        if st.wire is not None and self.counts == "planes":
+        exact_descent = self.descent == "exact"
+        if exact_descent and st.wire is not None and self.counts == "planes":
             resolved = self._descend_host_batch(sites, st, cum_cache)
             if resolved is not None:
                 fallback_map.update(resolved)
@@ -835,7 +873,9 @@ class DeviceClassifier:
         margins = margins.cpu().numpy()
         host_sites: list[tuple[int, int]] = []
         for i, (b, node) in enumerate(sites):
-            if margins[i] > DESCENT_MARGIN_SAFE and b not in cum_cache:
+            if not exact_descent or (
+                margins[i] > DESCENT_MARGIN_SAFE and b not in cum_cache
+            ):
                 fallback_map[(b, node)] = int(finals[i])
             else:
                 host_sites.append((b, node))
@@ -953,9 +993,9 @@ class DeviceClassifier:
         # recombination error of a half-cent rounding boundary (x.xx5, incl.
         # the 0.005 significance cutoff) could round differently than the
         # reference's f64 prefix sums. Recompute those queries' significant
-        # confidences exactly on the host.
+        # confidences exactly on the host (not under a device descent).
         cum_cache: dict[int, np.ndarray] = {}
-        if total and not st.exact_mode:
+        if total and not st.exact_mode and self.descent == "exact":
             near = np.abs(((conf64_f * 100.0) % 1.0) - 0.5) < CONF_RISK_MARGIN_SINGLE
             if near.any():
                 qid = np.repeat(np.arange(n_real), np.diff(off))
@@ -1006,6 +1046,7 @@ class DeviceClassifier:
             # batch: "auto" then switches the run to the exact-f64 path,
             # which needs no wire at all
             need_host = self._replayed_queries | set(cum_cache)
+            self._replayed_queries = need_host
             self._fb_dense = len(need_host) * 2 >= max(n_real, 1)
             if (
                 self._fb_dense

@@ -22,8 +22,9 @@ double-f32 stage on a ``[B, N]`` count matrix, for the backend that builds no
 planes. The JAX package looks the table up with a one-hot contraction at
 ``Precision.HIGHEST`` because a gather is slow on its chip; each output
 selects one f32 exactly, which is ``torch.gather`` by semantics, so that is
-what the port uses. ``_compact_split`` (``split`` of ``significant_nodes``)
-reads single-tip eval nodes straight from the probabilities.
+what the port uses. ``_compact_split`` (``split`` of ``significant_nodes``,
+and of ``significant_nodes_planes`` off the unit/wide path) reads
+single-tip eval nodes straight from the probabilities.
 
 What differs from the JAX package: it compacts with ``top_k`` into slots of a
 sticky width that widens on overflow, packs the slots into one buffer for
@@ -420,6 +421,7 @@ def significant_nodes_planes(
     split2: tuple | None = None,  # (ws, we, wpos, tip_has_unit)
     sideband: bool = True,
     num_tips: int = 0,
+    split: tuple | None = None,  # (inner_starts, inner_ends, inner_pos, evalpos_of_tip)
 ):
     """Double-f32 significance from counter planes: f32 table lookup (K4) ->
     compensated scan (K6, or K7 with ``bm_scan``) -> threshold masks.
@@ -431,8 +433,15 @@ def significant_nodes_planes(
     With overflow lists (they must cover EVERY tip with a count above 15)
     the lookup reads only the low 4 count bits and the listed tips are
     patched. ``sideband`` picks, on the unit/wide path, between the sideband
-    and the scatter. ``bm_scan`` takes the plain eval-node compaction, as in
-    the JAX package, and assumes the packed layout."""
+    and the scatter. ``bm_scan`` assumes the packed layout. Off the
+    unit/wide path the eval nodes are compacted plainly, or, with ``split``,
+    by :func:`_compact_split` (single-tip eval nodes straight from the
+    probabilities, codes are eval positions); with ``bm_scan`` its
+    ``evalpos_of_tip`` must be in bit-major flat order
+    (:func:`bitmajor_evalpos`, which the JAX package applies here on every
+    batch and the port once, at upload). As in the JAX package, the
+    unit/wide split wins over ``split`` on the tip-order scan, and the
+    bit-major scan never takes the unit/wide split."""
     if split2 is not None and not bm_scan:
         probs, sb, fixv = _split2_probs(
             planes, table, over_idx, over_val, layout, sideband
@@ -458,13 +467,35 @@ def significant_nodes_planes(
             word = tip // 32
             probs_bm[r, tip % 32, word // 128, word % 128] = fixv[r, s]
         cum_hi, cum_lo = dd_cumsum_bitmajor(probs_bm)
+        if split is not None:
+            # the tip path reads the probabilities where K7 read them, in
+            # bit-major flat order (split[3] is already remapped there)
+            sig = _compact_split(
+                cum_hi, cum_lo, probs_bm.reshape(probs_bm.shape[0], -1), *split
+            )
+            return sig, (cum_hi, cum_lo)
     else:
         probs = _tip_order_probs(probs_bm, layout)
         if over_idx is not None:
             probs = _scatter_fix(probs, over_idx, fixv)
         cum_hi, cum_lo = tip_prob_cumsum_dd(probs)
+        if split is not None:
+            return _compact_split(cum_hi, cum_lo, probs, *split), (cum_hi, cum_lo)
     sig = _compact_dd_from_cum(cum_hi, cum_lo, node_starts, node_ends)
     return sig, (cum_hi, cum_lo)
+
+
+def bitmajor_evalpos(evalpos_of_tip: torch.Tensor, S: int) -> torch.Tensor:
+    """``evalpos_of_tip`` moved to the bit-major flat order of ``[32, S,
+    128]`` probabilities of the packed layout, where tip ``t`` sits at
+    ``(t % 32) * S * 128 + t // 32``; -1 at the padding."""
+    t = torch.arange(evalpos_of_tip.shape[0], device=evalpos_of_tip.device)
+    out = torch.full(
+        (32 * S * 128,), -1, dtype=evalpos_of_tip.dtype,
+        device=evalpos_of_tip.device,
+    )
+    out[(t % 32) * (S * 128) + t // 32] = evalpos_of_tip
+    return out
 
 
 def cum_from_planes(

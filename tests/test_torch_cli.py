@@ -116,8 +116,6 @@ def test_only_db_then_skip_db_and_oracle_backend(tmp_path):
         (["--num-processes", "2"], "--num-processes"),
         (["--process-id", "0"], "--process-id"),
         (["--global-mesh"], "--global-mesh"),
-        (["--descent", "device"], "--descent device"),
-        (["--trace", "tracedir"], "--trace"),
     ],
 )
 def test_unported_flags_exit_with_their_message(tmp_path, capsys, flags, name):

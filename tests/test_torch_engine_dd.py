@@ -281,7 +281,16 @@ def test_mode_arguments_are_checked():
         DeviceClassifier.create(db, device="cpu", fold="blocked")
     with pytest.raises(ValueError):
         DeviceClassifier.create(db, device="cpu", counts="sparse")
-    with pytest.raises(ValueError):  # the planes backends take split2
-        DeviceClassifier.create(db, device="cpu", split_sig=True)
+    with pytest.raises(ValueError):
+        DeviceClassifier.create(db, device="cpu", descent="host")
+    # the planes backends take the single-tip split where split2 is off
+    s = DeviceClassifier.create(db, device="cpu", split_sig=True, split2=False,
+                                significance="dd")
+    assert s.state.split_sig is not None and s.state.split2 is None
+    # and upload it only where a compaction reads it
+    for kw in ({"significance": "dd"}, {"split2": False}):
+        u = DeviceClassifier.create(db, device="cpu", split_sig=True, **kw)
+        assert u.state.split_sig is None
     d = DeviceClassifier.create(db, device="cpu")
     assert d.significance == "exact" and not d._sparse and d._exact_mode
+    assert d.descent == "exact" and d.state.split_sig is None

@@ -577,3 +577,109 @@ def test_probe_f64_ew_kernel_equals_plain_on_whole_space_words(cuda):
     halves = whole_space_halves((1 << 20,), cuda, 6)
     for g, w in zip(xf.probe_f64_ew(*halves), xf.probe_f64_ew_plain(*halves)):
         assert torch.equal(g, w)
+
+
+# -- the engine's options, the trace and the bench (the checks of
+# chip_smoke.py's phases path_65k_split2_off, path_65k_split_sig,
+# path_65k_descent_device, trace and bench, on small worlds) ----------------
+
+
+@pytest.fixture(scope="module")
+def small_world():
+    from raxtax_tpu_torch.tools.synth import build_world
+
+    db, queries, _ = build_world(8192, 64)
+    return db, queries
+
+
+@pytest.mark.parametrize(
+    "split_sig,bm_scan", [(False, False), (True, False), (True, True)],
+    ids=["split2_off", "split_sig", "split_sig_bm_scan"],
+)
+def test_split_options_equal_the_oracle_on_the_card(cuda, small_world, split_sig,
+                                                    bm_scan):
+    """``RAXTAX_SPLIT2=0`` (with ``RAXTAX_SPLIT_SIG=1``, and on the bit-major
+    scan of a packed copy): every output line the oracle's, K6 or K7 run,
+    and the single-tip split compacts every batch where it is asked for."""
+    import copy
+
+    from raxtax_tpu_torch.db.database import ensure_kmer_layout
+    from raxtax_tpu_torch.engine.classify import make_classifier
+    from raxtax_tpu_torch.models.oracle import OracleClassifier
+    from raxtax_tpu_torch.ops import nodeconf, planes
+    from raxtax_tpu_torch.tools.compare_descents import dd_args
+
+    db, queries = small_world
+    if bm_scan:
+        db = ensure_kmer_layout(copy.copy(db), "packed")
+    calls = []
+    split = nodeconf._compact_split
+    nodeconf._compact_split = lambda *a: calls.append(1) or split(*a)
+    try:
+        clf = make_classifier(db, dd_args("cuda", 32, "exact", split2=False,
+                                          split_sig=split_sig, bm_scan=bm_scan))
+        assert clf.state.split2 is None
+        planes.dd_cumsum.launches = planes.dd_cumsum_bitmajor.launches = 0
+        got = [r for lo in range(0, 64, 32)
+               for r in clf.classify_batch(queries[lo : lo + 32])]
+    finally:
+        nodeconf._compact_split = split
+    scan, other = planes.dd_cumsum, planes.dd_cumsum_bitmajor
+    if bm_scan:
+        scan, other = other, scan
+    assert scan.launches >= 2 and other.launches == 0
+    assert len(calls) >= 2 if split_sig else not calls
+    orc = OracleClassifier(db)
+    for (label, seq), r in zip(queries, got):
+        want = orc.classify(label, seq)
+        assert r.out_string() == want.out_string(), label
+        assert r.tsv_string() == want.tsv_string(), label
+
+
+def test_device_descent_agrees_with_the_exact_one_where_not_replayed(
+    cuda, small_world
+):
+    from raxtax_tpu_torch.tools.compare_descents import compare_descents
+
+    db, queries = small_world
+    got = compare_descents(db, queries, 32, "cuda")
+    assert got["differ"] == [] and got["host_replays_device"] == 0
+    assert got["compared"] + got["replayed_by_exact"] == len(queries)
+    assert got["equal"] == got["compared"] > 0
+
+
+def test_cli_trace_names_a_csrc_kernel(cuda, tmp_path):
+    """``--trace DIR`` on the default path: the profiler trace in DIR names
+    K1's kernel (``fold_planes_kernel``), launched through ctypes."""
+    from pathlib import Path
+
+    from raxtax_tpu_torch.cli import main
+    from raxtax_tpu_torch.utils.trace import csrc_kernels, csrc_kernels_in
+
+    data = Path(__file__).resolve().parent / "data"
+    out, tr = tmp_path / "out", tmp_path / "trace"
+    assert main(["-d", str(data / "golden_refs.fasta"), "-i",
+                 str(data / "golden_queries.fasta"), "-o", str(out),
+                 "--trace", str(tr)]) == 0
+    assert (out / "raxtax.out").read_bytes() == (data / "golden_raxtax.out").read_bytes()
+    found = csrc_kernels_in(tr)
+    assert "fold_planes_kernel" in found and set(found) <= csrc_kernels()
+
+
+def test_bench_prints_its_line_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    import json
+
+    from raxtax_tpu_torch.tools import bench
+
+    for k, v in {"RAXTAX_BENCH_REFS": "4096", "RAXTAX_BENCH_QUERIES": "256",
+                 "RAXTAX_BENCH_BATCH": "64", "RAXTAX_BENCH_REPS": "3",
+                 "RAXTAX_BENCH_ORACLE_QUERIES": "2",
+                 "RAXTAX_BENCH_CACHE_DIR": str(tmp_path)}.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main([]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "classify_throughput_4096ref_db"
+    assert line["unit"] == "queries/s/gpu" and len(line["pass_s"]) == 3
+    assert line["batch"] == 64 and line["value"] >= line["median"] > 0

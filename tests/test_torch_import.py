@@ -34,8 +34,14 @@ def test_import_pulls_no_jax():
         "import raxtax_tpu_torch.tools.profile_stages\n"
         "import raxtax_tpu_torch.tools.diag_engine\n"
         "import raxtax_tpu_torch.tools.kernel_ab, raxtax_tpu_torch.tools.kernel_batch\n"
+        "import raxtax_tpu_torch.tools.bench, raxtax_tpu_torch.tools.bench_scale\n"
+        "import raxtax_tpu_torch.tools.probe_prepare, raxtax_tpu_torch.tools.probe_sig\n"
+        "import raxtax_tpu_torch.tools.native_baseline\n"
+        "import raxtax_tpu_torch.tools.plot_runtime_memory\n"
+        "import raxtax_tpu_torch.tools.compare_descents\n"
+        "import raxtax_tpu_torch.prob.oracle, raxtax_tpu_torch.utils.trace\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'raxtax_tpu', 'tests', 'bench', 'psutil')]\n"
+        " ('jax', 'jaxlib', 'raxtax_tpu', 'tests', 'bench', 'scripts', 'psutil')]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -59,10 +65,11 @@ def _site_imports_jax() -> bool:
 
 
 def test_sources_name_the_jax_package_only_in_prose():
-    """No import of ``jax``, of the JAX package, of the repository's tests or
-    benchmark, or of ``psutil`` anywhere in the port or in chip_smoke.py."""
+    """No import of ``jax``, of the JAX package, of the repository's tests,
+    benchmark or scripts, or of ``psutil`` anywhere in the port or in
+    chip_smoke.py."""
     pat = re.compile(
-        r"^\s*(from|import)\s+(jax|jaxlib|raxtax_tpu|tests|bench|psutil)"
+        r"^\s*(from|import)\s+(jax|jaxlib|raxtax_tpu|tests|bench|scripts|psutil)"
         r"(\.|\s|$)", re.M
     )
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -84,6 +91,23 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+
+
+def test_new_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    """The bench, ``bench_scale`` and the profiling scripts run on the GPU
+    by default and raise before any work without one."""
+    import torch
+
+    from raxtax_tpu_torch.tools import bench, bench_scale, probe_prepare, probe_sig
+
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a GPU")
+    monkeypatch.setattr(bench, "config", lambda: pytest.fail("work began"))
+    for main in (bench.main, probe_prepare.main, probe_sig.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_scale.main(["--refs", "10"])
 
 
 def test_create_without_gpu_raises():
