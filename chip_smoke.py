@@ -37,7 +37,13 @@ It needs no arguments, no network and no JAX. It
    reports throughput, phase times, peak memory, pairs per query, host
    replays and whether the fold flipped to dense (``path_1m_dd``),
 8. drives the dense-count backend at that size for two batches, where its
-   scan takes the pairwise tree (``path_1m_xla``),
+   scan takes the pairwise tree (``path_1m_xla``), then the sharded pipeline
+   of ``parallel/mesh.py`` on a mesh ``1,1`` (a world of one rank on NCCL)
+   at that size, one pass of every query each for ``pallas`` (K9, K3, K4,
+   K6 on the rank's stripe), ``stream`` (K10, K3, K4, K6) and ``xla`` (dense
+   counts, the pairwise scan tree): byte-equal to the oracle and to the
+   double-f32 run's lines, with each backend's launches by kernel
+   (``path_1m_mesh``),
 9. times K13's seven operation chains at 5,000,000 steps after holding their
    bits against the plain version, holds every chain at step counts around
    its unrolled loop on whole-space words too, reads the chains' dependent
@@ -50,7 +56,13 @@ It needs no arguments, no network and no JAX. It
     words against their plain versions, K12 at ragged tip counts
     (``probe_f64``),
 11. fuzzes the engine against the oracle through ``tools/fuzz_hardware.py``
-    for about a minute, at least 24 trials (``fuzz``),
+    for about a minute, at least 24 trials (``fuzz``), then runs the CLI in
+    two child ranks (``parallel/launch.py``) that share the card over gloo,
+    on a 65,536-record synthetic FASTA: ``--global-mesh --mesh 1,2``,
+    ``--global-mesh --mesh 2,1`` and two independent ranks, each merged
+    ``raxtax.out``/``.tsv`` byte-equal to the single-process run and no
+    ``.shard*`` file left, with the gloo host-copy count, and a
+    ``tools/speedup.py --devices 1 2`` sweep (``mesh_ranks_65k``),
 12. runs the CLI with ``--trace DIR`` on a 20,000-record synthetic FASTA in
     a child and finds K1's kernel in the trace (``trace``, after the 65,536
     phases), and the bench ``tools/bench.py`` in a child under what is left
@@ -63,7 +75,8 @@ It needs no arguments, no network and no JAX. It
     host RSS, steady queries/s, exit code (``runtime_memory``).
 
 Each phase prints one JSON line; the ``kernels`` line carries, per kernel,
-its launches on the main path that runs it, its time, its plain version's
+its launches on the single-device path that runs it (the mesh phase prints
+its own launches by kernel), its time, its plain version's
 time and its bound on this card. Any failed phase raises, so the exit code is non-zero
 and the final ``{"ok": true, ...}`` line is not printed. There is no CPU
 path: without a GPU the script exits at once with code 1.
@@ -1186,11 +1199,12 @@ def timed_pass(db, queries, a, clf, phase: str):
 def phase_path_large(per_ref_s: float):
     from raxtax_tpu_torch.engine.classify import make_classifier
 
-    # DB build + both classify passes + kernels phase (plain versions
-    # included) + oracle: keep what is left of the budget for all of them
+    # DB build + the classify passes (the mesh's too) + kernels phase
+    # (plain versions included) + oracle: keep what is left of the budget
+    # for all of them
     n_refs = 200_000
     for cand in (1_000_000, 500_000):
-        est = 3.0 * per_ref_s * cand + 330.0 + 2.5e-4 * cand
+        est = 3.0 * per_ref_s * cand + 370.0 + 2.5e-4 * cand
         if est < remaining():
             n_refs = cand
             break
@@ -1286,6 +1300,7 @@ def phase_path_large(per_ref_s: float):
     note("kernels compared; driving the double-f32 path")
     torch.cuda.reset_peak_memory_stats()
     outs, tsvs, dt, dd_counts, phase_ms = timed_pass(db, half, a, clf, "path_1m_dd")
+    dd_lines = (outs, tsvs)
     n_batches = -(-len(half) // clf.batch_size)
     flipped = not clf._sparse
     for k in DD_PATH:
@@ -1339,7 +1354,91 @@ def phase_path_large(per_ref_s: float):
         "launches": counts, "host_replays": clf.host_replays,
     }
     note(f"dense-count backend driven in {time.time() - t0:.1f}s")
-    return kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla
+    del clf
+    torch.cuda.empty_cache()
+    p1m_mesh = phase_path_1m_mesh(db, queries, *dd_lines)
+    return kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla, p1m_mesh
+
+
+#: the kernels each backend of the sharded pipeline runs on its stripe (the
+#: dense counts of ``xla`` run none; its scan is K6 only on aligned widths)
+MESH_PATH = {
+    "pallas": ("fold_planes_gathered", "planes_hist", "planes_probs", "dd_cumsum"),
+    "stream": ("fold_planes_stream", "planes_hist", "planes_probs", "dd_cumsum"),
+    "xla": (),
+}
+
+
+def phase_path_1m_mesh(db, queries, dd_outs, dd_tsvs) -> dict:
+    """The sharded pipeline on a mesh ``1,1``, a world of one rank with
+    NCCL, at the large size: ``--mesh 1,1`` as the CLI hands it to
+    ``make_classifier``, for ``pallas``, ``stream`` and ``xla``, one pass of
+    every query each after a warm-up batch. Each is byte-equal to the
+    oracle on the checked queries and to the single-device double-f32
+    run's lines on the queries that run classified; each planes backend
+    launched its fold, K3, K4 and K6 on every batch."""
+    import copy
+
+    import torch.distributed as dist
+
+    from raxtax_tpu_torch.db.database import ensure_kmer_layout
+    from raxtax_tpu_torch.engine.classify import make_classifier
+    from raxtax_tpu_torch.parallel import multihost
+
+    t0 = time.time()
+    # the mesh shards contiguous reference columns: the packed layout (a
+    # second matrix on the host; the flat one stays the other phases')
+    packed = ensure_kmer_layout(copy.copy(db), "packed")
+    line = {"phase": "path_1m_mesh", "mesh": "1,1", "refs": db.num_tips,
+            "queries": len(queries), "packed_layout_s": round(time.time() - t0, 2)}
+    for backend in ("pallas", "stream", "xla"):
+        a = args_for(backend=backend)
+        a.mesh, a.global_mesh = "1,1", False
+        t0 = time.time()
+        clf = make_classifier(packed, a, n_queries_hint=len(queries))
+        torch.cuda.synchronize()
+        upload_s = time.time() - t0
+        pipe = clf.pipeline
+        if pipe is None or pipe.backend != backend:
+            raise AssertionError(f"path_1m_mesh {backend}: no sharded pipeline")
+        line["world"] = {"size": dist.get_world_size(),
+                         "backend": pipe.mesh.backend}
+        if pipe.mesh.backend != "nccl":
+            raise AssertionError(f"path_1m_mesh: {pipe.mesh.backend}, not NCCL")
+        torch.cuda.reset_peak_memory_stats()
+        outs, tsvs, dt, counts, phase_ms = timed_pass(
+            packed, queries, a, clf, f"path_1m_mesh {backend}")
+        n_batches = -(-len(queries) // clf.batch_size)
+        for k in MESH_PATH[backend]:
+            if counts[k] < n_batches:
+                raise AssertionError(
+                    f"path_1m_mesh {backend} launched {k} {counts[k]} times")
+        if backend == "xla":
+            check_dense_launches("path_1m_mesh xla", counts, n_batches,
+                                 scan=pipe.n_local % 128 == 0)
+        checked = check_oracle(packed, queries, outs, tsvs, 5)
+        differ = [l for l in dd_outs
+                  if outs[l] != dd_outs[l] or tsvs[l] != dd_tsvs[l]]
+        if differ:
+            raise AssertionError(
+                f"path_1m_mesh {backend}: {len(differ)} queries differ from "
+                f"the double-f32 run, first {differ[0]}")
+        line[backend] = {
+            "batch": clf.batch_size, "upload_s": round(upload_s, 2),
+            "pass_s": round(dt, 3), "queries_per_s": round(len(queries) / dt, 2),
+            "phase_ms_per_batch": phase_ms, "oracle_checked": checked,
+            "equal_to_dd_run": len(dd_outs), "host_replays": clf.host_replays,
+            "n_local": pipe.n_local, "n_padded": pipe.n_padded,
+            "scan": "dd_cumsum" if pipe.n_local % 128 == 0 else "pairwise tree",
+            "peak_gpu_bytes": int(torch.cuda.max_memory_allocated()),
+            "launches": {k: v for k, v in counts.items() if v},
+        }
+        del clf, pipe
+        torch.cuda.empty_cache()
+        note(f"path_1m_mesh {backend}: {dt:.2f}s")
+    multihost.shutdown()
+    del packed
+    return line
 
 # -- the scripts path: probes, fuzz, sweep -----------------------------------
 
@@ -1504,6 +1603,43 @@ def phase_fuzz() -> dict:
     torch.cuda.empty_cache()
     return {"phase": "fuzz", **tally, "not_drawn": fz.NOT_DRAWN,
             "launches": counts}
+
+
+#: records of the mesh ranks' synthetic FASTA, and its queries (the first
+#: records again)
+MESH_RECORDS, MESH_QUERIES = 65_536, 512
+
+
+def phase_mesh_ranks_65k() -> dict:
+    """The CLI as a user runs it on several ranks of one machine, through
+    ``tools/mesh_ranks.py``: the database cache once (``--only-db``), the
+    single-process run, then two child ranks started by
+    ``parallel/launch.py`` that share the card over gloo for
+    ``--global-mesh --mesh 1,2``, ``--global-mesh --mesh 2,1`` and two
+    independent ranks. Every merged ``raxtax.out``/``.tsv`` is byte-equal
+    to the single run's, no ``.shard*`` file is left, and rank 0's log gives
+    its peak device memory and the gloo host-copy count. Then
+    ``tools/speedup.py --devices 1 2`` (a sweep on a shared card: no scaling
+    claim)."""
+    from raxtax_tpu_torch.tools import mesh_ranks, speedup
+    from raxtax_tpu_torch.tools.make_synth_fasta import write_synth_fasta
+    from raxtax_tpu_torch.tools.sweep_common import read_fasta_records
+
+    torch.cuda.empty_cache()  # the ranks are children with their own contexts
+    line = {"phase": "mesh_ranks_65k", **mesh_ranks.run(
+        MESH_RECORDS, MESH_QUERIES, 2, ["1,2", "2,1"], BATCH, "cuda", log=note)}
+    for name, run in line["runs"].items():
+        if name.startswith("global") and not run["gloo_host_copies_rank0"]:
+            raise AssertionError(f"mesh_ranks_65k {name}: no gloo host copies")
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = os.path.join(tmp, "refs.fasta")
+        write_synth_fasta(MESH_RECORDS, refs)
+        rows = speedup.sweep(read_fasta_records(refs), [1, 2], 20_000,
+                             MESH_QUERIES, 0, "pallas", "cuda", log=note)
+    if any(row["returncode"] for row in rows):
+        raise AssertionError(f"mesh_ranks_65k speedup: {rows}")
+    line["speedup"] = {"rows": rows, "note": speedup.shared_note([1, 2], "cuda")}
+    return line
 
 
 #: records of the trace phase's synthetic FASTA, and its queries (the first
@@ -1678,16 +1814,19 @@ def main() -> int:
     say(phase_path_65k_xla(db, queries))
     del db
     say(phase_trace())
-    kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla = phase_path_large(
-        per_ref_s)
+    kernels, p1m, p1m_dd, p1m_stream, p1m_gathered, p1m_xla, p1m_mesh = (
+        phase_path_large(per_ref_s))
     per_ref_s_large = p1m["db_build_s"] / p1m["refs"]
     say(p1m)
     say(p1m_stream)
     say(p1m_gathered)
     say(p1m_dd)
     say(p1m_xla)
+    say(p1m_mesh)
     say(phase_fuzz())
-    note("fuzz done; the bench")
+    note("fuzz done; the CLI in two ranks")
+    say(phase_mesh_ranks_65k())
+    note("mesh ranks done; the bench")
     bench_lines = phase_bench()
     for line in bench_lines:
         say(line)

@@ -1,7 +1,8 @@
 """Command-line interface.
 
 Flag-compatible with the reference CLI (reference: src/io.rs:112-154,
-src/main.rs:14-173), plus ``--backend``, ``--batch-size`` and ``--device``.
+src/main.rs:14-173), plus ``--backend``, ``--batch-size``, ``--device`` and
+the JAX package's mesh and multi-process flags.
 Same output artifacts (`raxtax.out`, `raxtax.tsv`, `raxtax.log`,
 `raxtax.ckp`, `raxtax.json`), same checkpoint / resume semantics, same
 BSD-style exit codes. Runs on the GPU unless ``--device cpu`` is given.
@@ -27,9 +28,18 @@ matrix (double-f32 significance only), ``oracle`` runs on the host.
 without proof; ``--trace DIR`` writes a ``torch.profiler`` trace of the
 classification phase into ``DIR`` (TensorBoard / Perfetto JSON).
 
-Flags of the JAX package whose code paths are not ported yet (meshes and
-multi-process runs) are still parsed, and exit with a "not yet ported" error
-rather than silently running a single-device job.
+``--mesh D,M`` shards the database over a mesh of ranks
+(``parallel/mesh.py``); ``--coordinator host:port`` with
+``--num-processes``/``--process-id`` (or the JAX package's
+``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``, or
+``torchrun``'s environment) joins a world of processes, one device each
+(``parallel/multihost.py``). Without ``--global-mesh`` each group of ``D*M``
+ranks (one rank without ``--mesh``) classifies its own slice of the queries
+into ``raxtax.*.shard<g>`` files, folded into the single-file artifacts at
+the end; ``--global-mesh`` makes one mesh of the whole world, every rank
+feeds the same batches and rank 0 writes. A mesh that does not fit the world
+is a usage error (exit 2), found before any rank starts. Only rank 0 writes
+the binary database.
 """
 
 from __future__ import annotations
@@ -149,12 +159,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="Write a torch.profiler trace of the classification phase to "
         "DIR (view with TensorBoard / Perfetto)",
     )
-    # --- parsed, not ported yet (see not_ported) ---
-    p.add_argument("--mesh", type=str, default="", help="not ported yet")
-    p.add_argument("--coordinator", type=str, default="", help="not ported yet")
-    p.add_argument("--num-processes", type=int, default=0, help="not ported yet")
-    p.add_argument("--process-id", type=int, default=-1, help="not ported yet")
-    p.add_argument("--global-mesh", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--mesh", type=str, default="",
+        help="Mesh of ranks as 'data,model' sizes, e.g. '2,4' (one device "
+        "per rank; default: no mesh, or all ranks on the model axis with "
+        "--global-mesh)",
+    )
+    # --- multi-process (torch.distributed) ---
+    p.add_argument(
+        "--coordinator", type=str, default="",
+        help="Address host:port where the ranks meet (multi-process runs; "
+        "also honors JAX_COORDINATOR_ADDRESS and torchrun's MASTER_ADDR)",
+    )
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
+    p.add_argument(
+        "--global-mesh", action="store_true",
+        help="Span one ('data','model') mesh across every rank instead of "
+        "independent per-group meshes: the database is model-sharded "
+        "across processes (for databases larger than one device); every "
+        "rank feeds identical batches, rank 0 writes the output",
+    )
     return p
 
 
@@ -183,39 +208,28 @@ def engine_mode_from_env(environ=None) -> dict:
     }
 
 
-def not_ported(args) -> str | None:
-    """The first requested option whose code path is not ported yet."""
-    checks = [
-        (bool(args.mesh), "--mesh"),
-        (bool(args.coordinator), "--coordinator"),
-        (bool(args.num_processes), "--num-processes"),
-        (args.process_id >= 0, "--process-id"),
-        (args.global_mesh, "--global-mesh"),
-    ]
-    for hit, name in checks:
-        if hit:
-            return name
-    return None
-
-
 def cache_layout(backend: str, only_db: bool, bm_scan: bool,
-                 significance: str) -> tuple[str, bool, str]:
+                 significance: str, mesh: str = "",
+                 processes: int = 1) -> tuple[str, bool, str]:
     """``(backend, with_ref_major, kmer_layout)`` of the database a run
-    builds from FASTA: the JAX CLI's choice for one device
-    (``raxtax_tpu/cli.py:232-254``), so both packages write the same cache
-    for the same flags. A classify run's ``auto`` is ``pallas``, as the JAX
-    CLI resolves it on its accelerator; ``--only-db`` keeps ``auto``, whose
+    builds from FASTA: the JAX CLI's choice (``raxtax_tpu/cli.py:232-254``),
+    so both packages write the same cache for the same flags. A classify
+    run's ``auto`` is ``pallas``, as the JAX CLI resolves it on its
+    accelerator; ``--only-db`` keeps ``auto``, whose
     future consumer is unknown. Only ``auto`` and ``xla`` keep the
     ``[N, 2048]`` ref-major matrix. The planes backends (``pallas``,
     ``stream``) fold the flat postings layout at scale (``auto``: packed for
-    tiny databases); every other run builds ``packed``, and so does the
-    double-f32 bit-major scan, which reads only that layout."""
+    tiny databases) when they run on one device: with ``--mesh`` or several
+    processes, whose shards slice contiguous reference columns, the layout
+    is ``packed`` (one device per process here, where the JAX CLI also asks
+    for one local device). Every other run builds ``packed``, and so does
+    the double-f32 bit-major scan, which reads only that layout."""
     if backend == "auto" and not only_db:
         backend = "pallas"
     with_ref_major = backend in ("auto", "xla")
     if bm_scan and significance != "exact":
         layout = "packed"
-    elif backend in ("pallas", "stream"):
+    elif backend in ("pallas", "stream") and not mesh and processes == 1:
         layout = "auto"
     else:
         layout = "packed"
@@ -228,18 +242,27 @@ def main(argv: list[str] | None = None) -> int:
     if args.only_db and args.skip_db:
         # clap `conflicts_with` usage error, exit code 2 (src/io.rs:128-129)
         parser.error("--only-db cannot be used with --skip-db")
+    if (args.num_processes or args.process_id >= 0) and not (
+        args.coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
+    ):
+        # without a coordinator both processes would run as 0-of-1 and
+        # clobber each other's unsharded output files
+        parser.error(
+            "--num-processes/--process-id require --coordinator "
+            "(or JAX_COORDINATOR_ADDRESS)"
+        )
+    from .parallel.mesh import mesh_plan
+    from .parallel.multihost import world_config
+
     try:
         vars(args).update(engine_mode_from_env())
+        # the world and its meshes, checked before any rank starts
+        world = world_config(args.coordinator, args.num_processes, args.process_id)
+        plan = mesh_plan(
+            args.mesh, world.world_size if world else 1, args.global_mesh
+        )
     except ValueError as e:
         parser.error(str(e))
-    missing = not_ported(args)
-    if missing is not None:
-        print(
-            f"error: {missing} is not yet ported to the PyTorch/CUDA "
-            "package; run without it (single device) or use the JAX package",
-            file=sys.stderr,
-        )
-        return errors.UNAVAILABLE
     if args.backend != "oracle" and not args.only_db:
         # raises without a GPU unless --device cpu was asked for, before any
         # output file exists
@@ -254,8 +277,51 @@ def main(argv: list[str] | None = None) -> int:
         )
         return errors.CANTCREAT
 
+    from .parallel import multihost
+
+    try:
+        return _run(args, plan)
+    finally:
+        multihost.shutdown()
+
+
+def _run(args, plan) -> int:
+    """The run after the checks: join the world, then the reference's
+    stages, each rank on its group's share."""
     from .io.buildinfo import write_build_info
     from .io.outputs import OutputError, ResultWriter, get_output
+    from .parallel.multihost import (
+        barrier,
+        consolidate_artifacts,
+        host_query_slice,
+        maybe_initialize,
+        shard_suffix,
+    )
+
+    on_device = args.backend != "oracle" and not args.only_db
+    rank, world = maybe_initialize(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device if on_device else "cpu",
+    )
+    # a group of k ranks is one JAX process: its own query slice and shard
+    # files without --global-mesh; the one group of the world with it
+    k = plan[0] * plan[1] if plan else 1
+    group, n_groups = rank // k, world // k
+    global_mesh = args.global_mesh and world > 1
+    args._read_only_output = rank % k > 0
+    args._shard_suffix = shard_suffix(group, n_groups)
+
+    # Resuming across a different process count: fold any stale shard
+    # artifacts into the merged single-file set before opening this run's
+    # writers, so completed work is never redone or clobbered. Rank 0
+    # consolidates; the others wait at the (unconditional) barrier.
+    prefix = Path(args.prefix)
+    if world > 1:
+        if rank == 0 and not args.redo and prefix.is_dir():
+            consolidate_artifacts(prefix)
+        barrier("raxtax-consolidate")
+    elif not args.redo and prefix.is_dir():
+        consolidate_artifacts(prefix)
 
     try:
         writers, checkpoint = get_output(args)
@@ -280,7 +346,8 @@ def main(argv: list[str] | None = None) -> int:
         # path, src/main.rs:61)
         db_path = Path(checkpoint.db_fingerprint.path)
         backend, want_ref_major, want_layout = cache_layout(
-            args.backend, args.only_db, args.bm_scan, args.significance
+            args.backend, args.only_db, args.bm_scan, args.significance,
+            mesh=args.mesh, processes=world,
         )
         try:
             with phase_timer("Parsing References"):
@@ -301,7 +368,9 @@ def main(argv: list[str] | None = None) -> int:
             "full" if db.ref_major is not None else "km-only"
         )
 
-        if parsed_from_fasta and not args.skip_db:
+        # rank 0 alone writes the binary database: every rank parsed the
+        # same FASTA, and concurrent writers of one file would race
+        if parsed_from_fasta and not args.skip_db and rank == 0:
             bin_path = (Path(args.prefix) / db_path.name).with_suffix(".bin.rxdb")
             if bin_path.is_file() and not args.redo:
                 report_error(
@@ -336,12 +405,26 @@ def main(argv: list[str] | None = None) -> int:
 
         try:
             with phase_timer("Parsing Queries"):
+                # several ranks: slice by GLOBAL query index first, then
+                # drop the processed queries — filtering first would move
+                # queries between groups on a partial resume
                 queries = parse_query_fasta_file(
-                    args.query_file, checkpoint.processed_queries
+                    args.query_file,
+                    None if world > 1 else checkpoint.processed_queries,
                 )
         except Exception as e:
             report_error(f"Failed to parse {args.query_file}", e)
             return errors.NOINPUT
+        if world > 1:
+            done = checkpoint.processed_queries
+            if k > 1:
+                # a mesh's ranks run one batch loop: all take the processed
+                # baseline of its writer (the group's first rank)
+                done = _group_baseline(done if rank % k == 0 else None, k, rank)
+            if not global_mesh:
+                lo, hi = host_query_slice(len(queries), group, n_groups)
+                queries = queries[lo:hi]
+            queries = [(l, s) for l, s in queries if l not in done]
 
         from .engine.classify import run_queries
 
@@ -361,6 +444,8 @@ def main(argv: list[str] | None = None) -> int:
                 "Rerun raxtax-torch to continue from the last checkpoint.", e
             )
             return errors.TEMPFAIL
+        if world > 1 or plan is not None:
+            writers.log.write(_rank_report(rank, world, plan, args.device))
         try:
             writer.join()
         except Exception as e:
@@ -380,7 +465,48 @@ def main(argv: list[str] | None = None) -> int:
                         "Please delete them manually.", e
                     )
     writers.close()
+    if world > 1:
+        # every rank has flushed and closed its shards; rank 0 folds them
+        # into the reference's single-file artifacts (checkpoint and
+        # progress included, so a resume under any rank count is coherent)
+        barrier("raxtax-output-shards")
+        if rank == 0:
+            consolidate_artifacts(prefix)
     return errors.OK
+
+
+def _rank_report(rank: int, world: int, plan, device: str) -> str:
+    """The log line of a multi-rank or mesh run: this rank's peak device
+    memory (on a GPU) and, on a mesh, the CUDA tensors its collectives
+    copied through host memory (gloo)."""
+    import torch
+
+    parts = []
+    if device == "cuda":
+        parts.append(f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    if plan is not None:
+        from .parallel.mesh import COUNTERS
+
+        parts.append(
+            f"mesh collectives copied {COUNTERS['host_copies']} CUDA tensors "
+            "through host memory"
+        )
+    from .parallel.multihost import backend
+
+    return (f"[INFO ] rank {rank} of {world} ({backend() or 'no world'}): "
+            f"{'; '.join(parts) or 'done'}\n")
+
+
+def _group_baseline(done: set | None, k: int, rank: int) -> set:
+    """The processed set of this rank's group writer (rank ``k *
+    (rank // k)``), gathered from every rank's contribution."""
+    import torch.distributed as dist
+
+    from .parallel.multihost import host_group
+
+    sets = [None] * dist.get_world_size()
+    dist.all_gather_object(sets, done, group=host_group())
+    return sets[k * (rank // k)]
 
 
 if __name__ == "__main__":

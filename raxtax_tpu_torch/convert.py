@@ -4,6 +4,8 @@
   between the JAX package and this one as plain numpy arrays and strings
   (neither package imports the other; the ``.rxdb`` cache file is the other
   bridge, readable by both).
+- :func:`shard_fields` cuts one rank's stripe of a mesh out of those
+  fields: the JAX package's ``addressable_shards`` of its sharded matrices.
 - :func:`device_state` uploads what the engine keeps resident on the device:
   the k-mer-major postings matrix (block-padded, with its host block CSR,
   when the sparse fold is asked for) or, for the dense-count backend, the
@@ -84,6 +86,51 @@ def database_from_numpy(fields: dict) -> Database:
     )
 
 
+def shard_fields(fields: dict, mesh_shape: tuple[int, int], rank: int,
+                 backend: str = "pallas") -> dict:
+    """One rank's share of the database on a ``(data, model)`` mesh, as the
+    JAX package's ``ShardedPipeline.create`` pads and shards it
+    (``raxtax_tpu/parallel/mesh.py:290-325``); the rank's model coordinate
+    is ``(rank % (data * model)) % model``. Returns ``{"matrix", "n_padded",
+    "n_local", "lo"}``: for ``pallas`` the k-mer-major postings padded to
+    ``model * 128`` words, for ``stream`` to ``model * 1024`` words (the
+    JAX module's ``model * LANE * 8``; its row padding to ``ROW_BLOCK`` is
+    not made, the port's stream fold reads the rows as they are), each cut
+    to the rank's contiguous column block; for ``xla`` the ref-major rows
+    padded to a multiple of ``model``, cut to the rank's row block.
+    ``n_local`` tips from ``lo`` on belong to the rank."""
+    from .ops.intersect_fold import BLOCK_WORDS, LANE
+    from .parallel.mesh import pad_to_multiple
+
+    d, m = mesh_shape
+    m_idx = (rank % (d * m)) % m
+    if backend in ("pallas", "stream"):
+        km = np.asarray(fields["kmer_major"])
+        width = LANE if backend == "pallas" else BLOCK_WORDS
+        km = pad_to_multiple(km, m * width, axis=1)
+        w_l = km.shape[1] // m
+        matrix = km[:, m_idx * w_l : (m_idx + 1) * w_l]
+        n_padded = km.shape[1] * 32
+    elif backend == "xla":
+        if fields.get("ref_major") is None:
+            raise RuntimeError(
+                "xla backend needs the ref-major matrix, but this database "
+                "was built with with_ref_major=False (pallas/stream only); "
+                "rebuild the database or pick --backend pallas"
+            )
+        ref = pad_to_multiple(np.asarray(fields["ref_major"]), m, axis=0)
+        n_l = ref.shape[0] // m
+        matrix = ref[m_idx * n_l : (m_idx + 1) * n_l]
+        n_padded = ref.shape[0]
+    else:
+        raise ValueError(f"unknown mesh backend {backend!r}")
+    n_local = n_padded // m
+    return {
+        "matrix": np.ascontiguousarray(matrix), "n_padded": n_padded,
+        "n_local": n_local, "lo": m_idx * n_local,
+    }
+
+
 @dataclass
 class DeviceState:
     """Tensors the engine keeps resident on ``device``."""
@@ -122,6 +169,7 @@ class DeviceState:
 def device_state(
     db: Database, device, split2: bool = True, sparse: bool = False,
     dense_counts: bool = False, split_sig: bool = False, bm_scan: bool = False,
+    matrix: bool = True,
 ) -> DeviceState:
     """Upload the resident state. The descent CSR is in GLOBAL node space:
     the reference's ``max_by`` ranges over all children, childless Sequence
@@ -130,7 +178,8 @@ def device_state(
     host; the other folds run on the same copy. With ``dense_counts`` the
     ref-major matrix is uploaded in place of the postings matrix.
     ``split_sig`` adds the single-tip split of the double-f32 significance
-    stage, remapped for the bit-major scan with ``bm_scan``."""
+    stage, remapped for the bit-major scan with ``bm_scan``. ``matrix=False``
+    uploads no matrix at all (a mesh's pipeline holds its own stripe)."""
     dev = torch.device(device)
     tax = db.taxonomy
 
@@ -155,7 +204,9 @@ def device_state(
     blk_ptr = blk_ids = kmer_major3 = ref_bits = split_one = None
     if split_sig:
         split_one = tuple(up(a, torch.int64) for a in tax.split_sig_arrays())
-    if dense_counts:
+    if not matrix:
+        pass
+    elif dense_counts:
         ref_bits = up(np.ascontiguousarray(db.ref_major).view(np.int32))
     elif sparse:
         kmer_major3, blk_ptr, blk_ids = prepare_kmer_major_sparse(db, dev)

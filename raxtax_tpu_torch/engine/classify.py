@@ -20,14 +20,22 @@ from ..utils.logging import Progress, phase_timer, report_warning
 log = logging.getLogger("raxtax")
 
 
-def make_classifier(db: Database, args, n_queries_hint: int | None = None):
+def make_classifier(db: Database, args, n_queries_hint: int | None = None,
+                    mesh=None):
     """Backend dispatch: 'oracle' (host numpy, exact) or the device engine
     on ``args.device`` (the GPU unless the CPU is asked for). 'auto' and
     'pallas' fold counter planes in the mode ``args.significance`` /
     ``args.fold`` / ``args.bm_scan`` name (the engine's defaults where they
     are absent); 'stream' takes the stream fold; 'xla' builds dense counts
     from the ref-major matrix. ``args.split2`` / ``args.split_sig`` pick the
-    double-f32 stage's compaction, ``args.descent`` its descent."""
+    double-f32 stage's compaction, ``args.descent`` its descent.
+
+    A mesh forms when ``args.mesh`` is set, or under ``args.global_mesh`` in
+    a world of several ranks (``parallel/mesh.mesh_plan``): the JAX rule
+    "``--mesh`` or several local devices", with one device per rank. Every
+    rank of the world makes its mesh here, at the same point. Otherwise the
+    rank runs the single-device engine on its own device. A caller that
+    classifies many databases on one mesh passes it as ``mesh``."""
     backend = getattr(args, "backend", "auto")
     if backend == "oracle":
         return OracleClassifier(
@@ -38,14 +46,27 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
     if backend not in ("auto", "pallas", "stream", "xla"):
         raise ValueError(f"unknown backend {backend!r}")
     fold = "stream" if backend == "stream" else getattr(args, "fold", "dense")
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh, mesh_plan
+    from ..parallel.multihost import rank_device
     from .device import DeviceClassifier  # deferred: uploads the database
+
+    device = rank_device(getattr(args, "device", None))
+    spec = getattr(args, "mesh", "")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh is None and mesh_plan(
+        spec, world, getattr(args, "global_mesh", False)
+    ) is not None:
+        mesh = make_mesh(spec, device=device)
+        log.info("mesh %s of ranks %s", mesh.shape, mesh.ranks.tolist())
 
     return DeviceClassifier.create(
         db,
         skip_exact_matches=args.skip_exact_matches,
         raw_confidence=args.raw_confidence,
         batch_size=getattr(args, "batch_size", 0) or None,
-        device=getattr(args, "device", None),
+        device=device,
         debug_checks=getattr(args, "debug_checks", False),
         tsv=getattr(args, "tsv", True),
         n_queries_hint=n_queries_hint,
@@ -56,6 +77,7 @@ def make_classifier(db: Database, args, n_queries_hint: int | None = None):
         split2=getattr(args, "split2", True),
         split_sig=getattr(args, "split_sig", False),
         descent=getattr(args, "descent", "exact"),
+        mesh=mesh,
     )
 
 

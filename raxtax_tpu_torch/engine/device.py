@@ -43,6 +43,17 @@ replay: no count row leaves the device, but an exact tie may resolve
 otherwise than in the reference's f64 (the JAX package's ``--descent
 device``). The exact-f64 path descends on exact values either way.
 
+``mesh=`` (``parallel/mesh.py``) runs the stages on a mesh of ranks, each
+holding a stripe of the database: the planes backends fold the rank's
+postings columns (K9 for ``pallas``, K10 for ``stream``), ``xla`` counts its
+ref-major rows; histograms and confidences are summed over the model axis,
+and every rank's host receives the whole batch's results and runs the host
+stages on them. Under a mesh the significance stage is the double-f32 one
+whatever ``significance`` says, with the full-width lookup (no wire): an
+exact f64 scan over sharded tips would need the carry handed from shard to
+shard. The wider mesh margins cover the f32 sums of partial confidences;
+host replays read count rows gathered over the mesh.
+
 All O(num_refs) work runs on the device; the host touches histograms,
 (K+1)-sized tables, the compacted significant set and the replayed rows.
 """
@@ -86,6 +97,7 @@ from ..ops.intersect_stream import intersection_planes_stream
 from ..ops.intersect_xla import intersection_counts_xla, zero_reference_ids
 from ..ops.nodeconf import (
     DESCENT_MARGIN_SAFE,
+    DESCENT_MARGIN_SAFE_MESH,
     cum_from_planes,
     max_descent,
     significant_nodes,
@@ -108,6 +120,9 @@ log = logging.getLogger("raxtax")
 #: value (scan error only). Values inside the band replay on the host from
 #: the exact count row.
 CONF_RISK_MARGIN_SINGLE = 1e-6
+#: the same under a mesh, where the recombination is within ~1e-6 (the model
+#: shards' partial confidences are summed in plain f32)
+CONF_RISK_MARGIN_MESH = 1e-4
 
 #: The engine computes the global signal from the intersection-size
 #: HISTOGRAM (per-bucket grouping); the reference accumulates sequentially
@@ -186,16 +201,18 @@ def _round_up(x: int, m: int) -> int:
 
 
 def auto_batch_size(
-    state: DeviceState, n_padded_tips: int, n_queries_hint: int | None
+    state: DeviceState, n_padded_tips: int, n_queries_hint: int | None,
+    dense: bool | None = None,
 ) -> int:
     """Power-of-two batch that keeps the live set of the three-deep loop
-    inside 60 % of the device memory left after the resident state."""
+    inside 60 % of the device memory left after the resident state.
+    ``dense`` (default: whether ``state`` holds the ref-major matrix) picks
+    the dense-count live set."""
     if state.device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(state.device)
-        per_tip = (
-            _LIVE_BYTES_PER_TIP if state.ref_bits is None
-            else _LIVE_BYTES_PER_TIP_DENSE
-        )
+        if dense is None:
+            dense = state.ref_bits is not None
+        per_tip = _LIVE_BYTES_PER_TIP_DENSE if dense else _LIVE_BYTES_PER_TIP
         fit = int(0.6 * free) // max(per_tip * n_padded_tips, 1)
         batch = max(BATCH_MIN, min(BATCH_MAX, fit))
     else:
@@ -241,6 +258,9 @@ class DeviceClassifier:
     #: "planes", or "dense": the ``[B, N]`` count matrix of the JAX package's
     #: xla backend (no fold, double-f32 significance only)
     counts: str = "planes"
+    #: the mesh's stages (``parallel/mesh.ShardedPipeline``), or None on one
+    #: device
+    pipeline: object = field(default=None, repr=False)
     #: block-sparse fold (K2). Sticky: a workload whose pair count exceeds
     #: the crossover budget switches to the dense fold for good
     _sparse: bool = field(default=False, repr=False)
@@ -301,6 +321,7 @@ class DeviceClassifier:
         counts: str = "planes",
         split_sig: bool = False,
         descent: str = "exact",
+        mesh=None,
     ) -> "DeviceClassifier":
         """Upload the database and build the classifier. ``device`` defaults
         to the GPU and raises when there is none; pass ``"cpu"`` to run the
@@ -318,7 +339,13 @@ class DeviceClassifier:
         split does not run: with dense counts, with ``split2=False``, or on
         the bit-major scan (the JAX package's ``RAXTAX_SPLIT_SIG`` with
         ``RAXTAX_SPLIT2``); elsewhere it is not uploaded. ``descent="device"`` accepts the double-f32
-        paths' device descents without proof (see the module note)."""
+        paths' device descents without proof (see the module note).
+        ``mesh`` (a ``parallel.mesh.Mesh``) shards the database over its
+        ranks and runs every stage there: the database is converted to the
+        packed layout, ``fold="stream"`` keeps the stream fold and the other
+        planes folds become the gathered one, ``device`` is the mesh's,
+        significance is double-f32 and the batch a multiple of the data
+        axis (see the module note)."""
         if significance not in ("exact", "dd", "auto"):
             raise ValueError(f"unknown significance mode {significance!r}")
         if fold not in ("dense", "sparse", "gathered", "stream"):
@@ -339,6 +366,14 @@ class DeviceClassifier:
             raise ValueError(
                 "bm_scan reads the packed postings layout; this database "
                 f"holds the {db.kmer_layout} one"
+            )
+        if mesh is not None:
+            return cls._create_mesh(
+                db, mesh, dense=dense, fold=fold, split2=split2,
+                split_sig=split_sig, skip_exact_matches=skip_exact_matches,
+                raw_confidence=raw_confidence, batch_size=batch_size,
+                debug_checks=debug_checks, tsv=tsv,
+                n_queries_hint=n_queries_hint, descent=descent,
             )
         dev = resolve_device(device)
         # the single-tip split is uploaded only where a compaction reads it
@@ -377,6 +412,40 @@ class DeviceClassifier:
         # the closest clade, which grows with the database. Workloads that
         # exceed it switch to the full-width lookup (see _mux_dense)
         self._over_budget = max(512, min(4096, db.num_tips // 256))
+        self._evaluator = native.NativeEvaluator.create(db)
+        return self
+
+    @classmethod
+    def _create_mesh(cls, db, mesh, dense: bool, fold: str, split2: bool,
+                     split_sig: bool, batch_size, n_queries_hint, **kw):
+        """:meth:`create` under a mesh: the pipeline of this rank's stripe
+        (the JAX package's ``backend`` rule: ``stream`` stays, the other
+        planes folds take the mesh's gathered fold, dense counts are
+        ``xla``)."""
+        from ..db.database import ensure_kmer_layout
+        from ..parallel.mesh import ShardedPipeline
+
+        # the mesh slices contiguous reference columns per model shard,
+        # which only the packed layout has
+        ensure_kmer_layout(db, "packed")
+        backend = "xla" if dense else ("stream" if fold == "stream" else "pallas")
+        pipeline = ShardedPipeline.create(
+            db, mesh, backend=backend, split2=split2, split_sig=split_sig
+        )
+        state = pipeline.state
+        if not batch_size:
+            batch_size = auto_batch_size(
+                state, pipeline.n_local, n_queries_hint, dense=dense
+            )
+        self = cls(
+            db=db, batch_size=_round_up(int(batch_size), mesh.shape["data"]),
+            state=state, significance="dd", fold=(
+                "dense" if dense else
+                "stream" if backend == "stream" else "gathered"
+            ),
+            counts="dense" if dense else "planes", pipeline=pipeline, **kw,
+        )
+        self._exact_mode = False
         self._evaluator = native.NativeEvaluator.create(db)
         return self
 
@@ -425,19 +494,24 @@ class DeviceClassifier:
             max_count=k_pad,
         )
 
-    def _dense_counts(self, seqs, kmer_sets) -> torch.Tensor:
-        """The ``[B, N]`` f32 count matrix of the dense backend: the packed
-        query presence rows against the resident ref-major matrix."""
-        B = self.batch_size
+    def _query_rows(self, seqs, kmer_sets) -> np.ndarray:
+        """``[B, 2048]`` int32 packed query presence rows (zero rows pad the
+        batch)."""
         q_bits = native.pack_query_rows(seqs) if kmer_sets is None else None
         if q_bits is None:
             if kmer_sets is None:
                 kmer_sets = [sequence_to_kmers(s) for s in seqs]
             q_bits = pack_query_kmers(kmer_sets)
-        rows = np.zeros((B, q_bits.shape[1]), np.int32)
+        rows = np.zeros((self.batch_size, q_bits.shape[1]), np.int32)
         rows[: q_bits.shape[0]] = q_bits.view(np.int32)
+        return rows
+
+    def _dense_counts(self, seqs, kmer_sets) -> torch.Tensor:
+        """The ``[B, N]`` f32 count matrix of the dense backend: the packed
+        query presence rows against the resident ref-major matrix."""
         return intersection_counts_xla(
-            self._to_device(rows), self.state.ref_bits
+            self._to_device(self._query_rows(seqs, kmer_sets)),
+            self.state.ref_bits,
         )
 
     def submit_batch(self, chunk: list[tuple[str, np.ndarray]]):
@@ -500,7 +574,13 @@ class DeviceClassifier:
             ids = np.full((B, e_pad), -1, dtype=np.int64)
             for i, e in enumerate(exact):
                 ids[i, : len(e)] = e
-        if self.counts == "dense":
+        if self.pipeline is not None:
+            planes, hist_dev = self.pipeline.counts_and_hist(
+                kmer_idx, ids, s_max,
+                query_bits=self._query_rows(seqs, kmer_sets)
+                if self.counts == "dense" else None,
+            )
+        elif self.counts == "dense":
             planes = self._dense_counts(seqs, kmer_sets)
             if ids is not None:
                 planes = zero_reference_ids(planes, self._to_device(ids))
@@ -570,7 +650,9 @@ class DeviceClassifier:
         exact_mode = self._exact_mode
         wire = None
         dense = self.counts == "dense"
-        if dense:
+        if self.pipeline is not None:
+            pass  # full-width lookup; replays gather rows over the mesh
+        elif dense:
             # the nibble wire, once host replays have been dense; sparse
             # replays gather u16 count rows per query instead. A device
             # descent replays nothing
@@ -587,6 +669,9 @@ class DeviceClassifier:
         if state.ready is not None:
             state.ready.synchronize()
         hist = state.hist_host.numpy()
+        if self.pipeline is not None:
+            # every tip of every stripe was counted: padded ones at size 0
+            hist[:, 0] -= self.pipeline.n_padded - self.db.num_tips
         if self.debug_checks:
             # device-stage integrity: every reference lands in exactly one
             # histogram bucket, and no intersection can exceed the query's
@@ -652,7 +737,9 @@ class DeviceClassifier:
             )
             return sig, cum0, None
         table = self._to_device(table64.astype(np.float32))
-        if self.counts == "dense":
+        if self.pipeline is not None:
+            sig, cum0 = self.pipeline.significant(planes, table)
+        elif self.counts == "dense":
             sig, cum0 = significant_nodes(
                 planes, table, st.node_starts, st.node_ends,
                 split=st.split_sig,
@@ -669,7 +756,10 @@ class DeviceClassifier:
     def _plane_rows(self, planes, queries: list[int]) -> np.ndarray:
         """``[len(queries), num_tips]`` exact counts of the given queries:
         decoded on the device from their planes, or, with dense counts, the
-        rows of the count matrix narrowed to integers."""
+        rows of the count matrix narrowed to integers; under a mesh, rows
+        gathered from every shard."""
+        if self.pipeline is not None:
+            return self.pipeline.gather_rows(planes, queries)[:, : self.db.num_tips]
         if self.counts == "dense":
             idx = torch.as_tensor(queries, dtype=torch.long, device=planes.device)
             return planes.index_select(0, idx).to(torch.int32).cpu().numpy()
@@ -864,17 +954,23 @@ class DeviceClassifier:
                 layout=ds.layout,
                 sideband=ds.split2 is not None and ds.sideband,
             )
-        finals, margins = max_descent(
-            cum0, *self._site_tensors(sites),
-            ds.range_start, ds.range_end, ds.child_ptr, ds.child_ids,
-            ds.is_inner,
-        )
-        finals = finals.cpu().numpy()
-        margins = margins.cpu().numpy()
+        if self.pipeline is not None:
+            arr = np.asarray(sites, dtype=np.int64)
+            finals, margins = self.pipeline.descend(cum0, arr[:, 0], arr[:, 1])
+            margin_safe = DESCENT_MARGIN_SAFE_MESH
+        else:
+            finals, margins = max_descent(
+                cum0, *self._site_tensors(sites),
+                ds.range_start, ds.range_end, ds.child_ptr, ds.child_ids,
+                ds.is_inner,
+            )
+            finals = finals.cpu().numpy()
+            margins = margins.cpu().numpy()
+            margin_safe = DESCENT_MARGIN_SAFE
         host_sites: list[tuple[int, int]] = []
         for i, (b, node) in enumerate(sites):
             if not exact_descent or (
-                margins[i] > DESCENT_MARGIN_SAFE and b not in cum_cache
+                margins[i] > margin_safe and b not in cum_cache
             ):
                 fallback_map[(b, node)] = int(finals[i])
             else:
@@ -996,7 +1092,11 @@ class DeviceClassifier:
         # confidences exactly on the host (not under a device descent).
         cum_cache: dict[int, np.ndarray] = {}
         if total and not st.exact_mode and self.descent == "exact":
-            near = np.abs(((conf64_f * 100.0) % 1.0) - 0.5) < CONF_RISK_MARGIN_SINGLE
+            margin = (
+                CONF_RISK_MARGIN_SINGLE if self.pipeline is None
+                else CONF_RISK_MARGIN_MESH
+            )
+            near = np.abs(((conf64_f * 100.0) % 1.0) - 0.5) < margin
             if near.any():
                 qid = np.repeat(np.arange(n_real), np.diff(off))
                 risky = sorted(set(qid[near].tolist()))

@@ -68,9 +68,12 @@ SIG_THRESHOLD = 0.005 - 1e-4
 #: f64 comparison (src/lineage.rs:154-170). The descent compares child
 #: confidences recombined as hi + lo in f32, so the error per confidence is
 #: the final f32 rounding (~6e-8) plus the scan's ~4e-9; comparing two
-#: children doubles it, and 1e-6 adds a ~4x cushion. Descent steps whose
-#: margin falls below the bound replay on the host in exact f64.
+#: children doubles it, and 1e-6 adds a ~4x cushion. Under a mesh the
+#: model shards' partial confidences are summed in plain f32 (~log2(shards)
+#: roundings more): the MESH bound. Descent steps whose margin falls below
+#: the bound replay on the host in exact f64.
 DESCENT_MARGIN_SAFE = 1e-6
+DESCENT_MARGIN_SAFE_MESH = 1e-5
 
 
 def _pull_parts(B: int, rows, codes, vals):
@@ -527,6 +530,7 @@ def max_descent(
     child_ptr: torch.Tensor,  # [n_nodes+1] CSR pointers
     child_ids: torch.Tensor,
     node_is_inner: torch.Tensor,  # [n_nodes] bool
+    merge=None,
 ):
     """Max-confidence descent on double-f32 prefix sums with certainty
     margins. Returns ``(final GLOBAL node ids [M], min_margin [M] f32)``:
@@ -536,7 +540,14 @@ def max_descent(
     argmax agrees with the reference's f64 one (src/lineage.rs:154-170); the
     engine replays the others on the host. As in Rust's ``max_by`` the LAST
     maximal child wins. All sites advance one tree level per step; a step is
-    a segmented arg-max over the flattened (site, child) list."""
+    a segmented arg-max over the flattened (site, child) list.
+
+    ``merge`` (a model-sharded mesh, ``parallel/mesh.py``) takes each step's
+    per-(site, child) confidences ``v``, computed on this shard's clipped
+    tip ranges, and returns them summed over the model shards before the
+    arg-max (the JAX package's ``psum_axis``). Every rank of a model group
+    then sees the same merged ``v``, takes the same children and so runs
+    the same number of level steps, which the collective needs."""
     if len(cum0) == 5:
         cum_hi, cum_lo, sb_idx, sb_hi, sb_lo = cum0
     else:
@@ -576,6 +587,8 @@ def max_descent(
                 lo_term + d_err2 + c_err + sb_lo[q, ub_e] - sb_lo[q, ub_s]
             )
         v = d_hi + lo_term
+        if merge is not None:
+            v = merge(v)
         vmax = torch.full((m,), -float("inf"), dtype=v.dtype, device=dev)
         vmax = vmax.scatter_reduce(0, site, v, "amax", include_self=True)
         at_max = v == vmax[site]

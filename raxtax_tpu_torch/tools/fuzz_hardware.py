@@ -1,7 +1,10 @@
 """Adversarial byte-parity fuzz of the device engine against the host oracle.
 
     python -m raxtax_tpu_torch.tools.fuzz_hardware [--trials 50] [--seed0 2000]
-        [--backends pallas xla stream] [--device cpu]
+        [--backends pallas xla stream] [--device cpu] [--mesh D,M]
+
+    python -m raxtax_tpu_torch.parallel.launch -n 2 -- \
+        -m raxtax_tpu_torch.tools.fuzz_hardware --mesh 1,2
 
 The counterpart of the JAX package's ``scripts/fuzz_hardware.py``: the same
 random worlds (``tools/fuzzworld.py``; seed ``seed0 + t`` for trial ``t``),
@@ -24,8 +27,14 @@ dimension meets every flag combination (the JAX script's split2 period of 4
 paired split2 only with ``skip_exact=True``, and its pipelined odd trials
 were exactly its ``raw_confidence`` trials). Combinations the port refuses by
 design are not drawn, and the tool says so once: ``bm_scan`` on the flat
-layout, ``split_sig`` on a planes backend, and split2 off (the port has no
-switch for it). ``--mesh`` is not ported (multi-GPU is a later item).
+layout, ``split_sig`` on a planes backend, and split2 off (not a dimension
+of this schedule).
+
+``--mesh D,M`` fuzzes the sharded pipeline (``parallel/mesh.py``), as the
+JAX script's ``--mesh`` does: every rank of a world started by
+``parallel/launch.py`` runs the same trials on one mesh of ``D*M`` ranks
+(which sees the engine's mesh rules: the packed layout, double-f32
+significance, the gathered fold for ``pallas``); the first rank prints.
 
 Prints one line per trial and a tally; a mismatch prints both outputs.
 Exit code 1 on any mismatch. Runs on the GPU unless ``--device cpu``.
@@ -53,7 +62,7 @@ MIN_TRIALS = 24
 
 NOT_DRAWN = (
     "not drawn (refused by the port on purpose): bm_scan on the flat layout, "
-    "split_sig on a planes backend, split2 off; --mesh is not ported"
+    "split_sig on a planes backend, split2 off"
 )
 
 
@@ -99,8 +108,10 @@ def classify(clf, queries, pipelined: bool) -> list:
     return got
 
 
-def run_trial(t: int, seed: int, cfg: dict, device: str, out=print) -> tuple[int, int]:
-    """One trial; returns ``(query checks, mismatches)``."""
+def run_trial(t: int, seed: int, cfg: dict, device: str, out=print,
+              mesh=None) -> tuple[int, int]:
+    """One trial (on ``mesh``, a ``parallel.mesh.Mesh``, when given);
+    returns ``(query checks, mismatches)``."""
     from ..db.database import ensure_kmer_layout
     from ..engine.classify import make_classifier
     from ..models.oracle import OracleClassifier
@@ -108,7 +119,8 @@ def run_trial(t: int, seed: int, cfg: dict, device: str, out=print) -> tuple[int
 
     db, queries = make_world(seed)
     db = ensure_kmer_layout(db, cfg["layout"])
-    clf = make_classifier(db, cli_args(cfg, device), n_queries_hint=len(queries))
+    clf = make_classifier(db, cli_args(cfg, device), n_queries_hint=len(queries),
+                          mesh=mesh)
     orc = OracleClassifier(
         db, skip_exact_matches=cfg["skip_exact"], raw_confidence=cfg["raw_conf"]
     )
@@ -133,16 +145,18 @@ def run_trial(t: int, seed: int, cfg: dict, device: str, out=print) -> tuple[int
 
 
 def run(trials: int, seed0: int, device: str, backends=BACKENDS,
-        seconds: float = 0.0, out=print) -> dict:
+        seconds: float = 0.0, out=print, mesh=None) -> dict:
     """The fuzz; returns the tally. With ``seconds``, no trial starts after
-    that many seconds once :data:`MIN_TRIALS` have run."""
+    that many seconds once :data:`MIN_TRIALS` have run (on a mesh, give no
+    ``seconds``: its ranks must run the same trials)."""
     out(NOT_DRAWN)
     t0 = time.time()
     total = mismatches = done = 0
     for t in range(trials):
         if seconds and done >= MIN_TRIALS and time.time() - t0 > seconds:
             break
-        n, bad = run_trial(t, seed0 + t, trial_config(t, backends), device, out)
+        n, bad = run_trial(t, seed0 + t, trial_config(t, backends), device,
+                           out, mesh)
         total += n
         mismatches += bad
         done += 1
@@ -157,16 +171,27 @@ def main(argv=None) -> int:
     ap.add_argument("--backends", nargs="+", choices=BACKENDS, default=list(BACKENDS))
     ap.add_argument("--seed0", type=int, default=2000)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--mesh", default="", help="not ported")
+    ap.add_argument("--mesh", default="",
+                    help="fuzz the sharded pipeline on a D,M mesh of ranks")
     a = ap.parse_args(argv)
-    if a.mesh:
-        print("error: --mesh is not ported to the PyTorch/CUDA package yet",
-              file=sys.stderr)
-        return 2
     from ..utils.device import resolve_device
 
     resolve_device(a.device)
-    tally = run(a.trials, a.seed0, a.device, tuple(a.backends))
+    mesh, out = None, print
+    if a.mesh:
+        from ..parallel.mesh import make_mesh
+        from ..parallel.multihost import maybe_initialize, shutdown
+
+        maybe_initialize(device=a.device)
+        mesh = make_mesh(a.mesh, device=a.device)
+        if mesh.mesh_rank:
+            out = lambda *_: None  # noqa: E731  (one rank prints)
+    try:
+        tally = run(a.trials, a.seed0, a.device, tuple(a.backends), out=out,
+                    mesh=mesh)
+    finally:
+        if mesh is not None:
+            shutdown()
     return 1 if tally["mismatches"] else 0
 
 

@@ -6,4 +6,3 @@ CANTCREAT = 73
 IOERR = 74
 TEMPFAIL = 75
 NOINPUT = 66
-UNAVAILABLE = 69  # EX_UNAVAILABLE: the requested option is not ported yet

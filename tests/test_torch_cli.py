@@ -1,6 +1,7 @@
 """The port's command line on the CPU (``--device cpu``): the committed
 golden fixture byte for byte (every ``--backend``), resume after an
-interrupted run, and the flags whose code paths are not ported yet."""
+interrupted run, and the usage errors of the mesh and multi-process
+flags."""
 
 from pathlib import Path
 
@@ -111,19 +112,27 @@ def test_only_db_then_skip_db_and_oracle_backend(tmp_path):
 @pytest.mark.parametrize(
     "flags,name",
     [
-        (["--mesh", "2,4"], "--mesh"),
-        (["--coordinator", "localhost:1234"], "--coordinator"),
-        (["--num-processes", "2"], "--num-processes"),
-        (["--process-id", "0"], "--process-id"),
-        (["--global-mesh"], "--global-mesh"),
+        # the JAX command line's usage error: a process count or id without
+        # a coordinator (exit 2)
+        (["--num-processes", "2"], "--num-processes/--process-id require"),
+        (["--process-id", "0"], "--num-processes/--process-id require"),
+        # meshes that do not fit the world, refused before any rank starts
+        (["--mesh", "3,3"], "mesh 3x3 > 1 available ranks"),
+        (["--mesh", "2x2"], "is not '<data>,<model>'"),
+        (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+          "--process-id", "0", "--global-mesh", "--mesh", "1,1"],
+         "--global-mesh spans the world of 2 ranks"),
     ],
 )
 def test_unported_flags_exit_with_their_message(tmp_path, capsys, flags, name):
+    """The mesh and multi-process flags run (the test keeps the name it had
+    while they were refused); what they refuse exits 2 with its message,
+    before anything is written."""
     out = tmp_path / "out"
-    rc = run_cli(out, *flags)
-    assert rc == 69
-    err = capsys.readouterr().err
-    assert name in err and "not yet ported" in err
+    with pytest.raises(SystemExit) as e:
+        run_cli(out, *flags)
+    assert e.value.code == 2
+    assert name in capsys.readouterr().err
     assert not out.exists()  # nothing ran, nothing was written
 
 

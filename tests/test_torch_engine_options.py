@@ -12,7 +12,7 @@ Each compares the significant sets after host rounding (as the host sees
 them, taken at its site search) and the output lines; the split runs are
 also byte-equal to the goldens, the device descents end at the same nodes.
 Then the CLI: the environment mapping, ``--descent device`` and ``--trace``
-on the CPU, and a mesh flag that still exits 69."""
+on the CPU, and ``--mesh 1,1``."""
 
 from pathlib import Path
 from types import SimpleNamespace
@@ -202,7 +202,13 @@ def test_cli_descent_device_and_trace_run(tmp_path, monkeypatch):
     assert len(files) == 1 and b"traceEvents" in files[0].read_bytes()[:4096]
 
 
-def test_mesh_still_exits_69(tmp_path, capsys):
+def test_mesh_still_exits_69(tmp_path):
+    """``--mesh 1,1 --device cpu`` (the test keeps the name it had while the
+    flag was refused): a world of one rank and the sharded pipeline,
+    byte-equal to the goldens."""
     out = tmp_path / "out"
-    assert _cli(out, "--mesh", "2,4") == 69
-    assert "--mesh" in capsys.readouterr().err and not out.exists()
+    assert _cli(out, "--mesh", "1,1") == 0
+    for ext in ("out", "tsv"):
+        assert (out / f"raxtax.{ext}").read_bytes() == (
+            DATA / f"golden_raxtax.{ext}").read_bytes()
+    assert "mesh {'data': 1, 'model': 1}" in (out / "raxtax.log").read_text()

@@ -683,3 +683,68 @@ def test_bench_prints_its_line_on_the_card(cuda, tmp_path, monkeypatch, capsys):
     assert line["metric"] == "classify_throughput_4096ref_db"
     assert line["unit"] == "queries/s/gpu" and len(line["pass_s"]) == 3
     assert line["batch"] == 64 and line["value"] >= line["median"] > 0
+
+
+def test_mesh_engine_at_world_size_one_on_nccl_at_1m(cuda):
+    """The sharded pipeline on a mesh ``1,1`` (a world of one rank on NCCL)
+    at 1,000,000 references, one batch of 256 queries for each backend:
+    the single-device double-f32 engine's lines, and the oracle's on two."""
+    import copy
+
+    from raxtax_tpu_torch.db.database import ensure_kmer_layout
+    from raxtax_tpu_torch.engine.device import DeviceClassifier
+    from raxtax_tpu_torch.models.oracle import OracleClassifier
+    from raxtax_tpu_torch.parallel.mesh import make_mesh
+    from raxtax_tpu_torch.parallel.multihost import shutdown
+    from raxtax_tpu_torch.tools.synth import build_world
+
+    db, queries, _ = build_world(1_000_000, 256, with_ref_major=True)
+    packed = ensure_kmer_layout(copy.copy(db), "packed")
+    single = DeviceClassifier.create(db, significance="dd", batch_size=256)
+    want = [r.out_string() for r in single.classify_batch(queries)]
+    del single
+    orc = OracleClassifier(db)
+    assert want[:2] == [orc.classify(l, s).out_string() for l, s in queries[:2]]
+    try:
+        mesh = make_mesh("1,1")
+        assert mesh.backend == "nccl"
+        for counts, fold in (("planes", "gathered"), ("planes", "stream"),
+                             ("dense", "dense")):
+            dev = DeviceClassifier.create(packed, batch_size=256, counts=counts,
+                                          fold=fold, mesh=mesh)
+            got = [r.out_string() for r in dev.classify_batch(queries)]
+            assert got == want, fold
+            del dev
+            torch.cuda.empty_cache()
+    finally:
+        shutdown()
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """The CLI in two ranks on ``cuda:0`` (gloo, every collective through
+    pinned host memory): a global mesh ``1,2`` and two independent ranks,
+    each the goldens' bytes with no shard left."""
+    import os
+    from pathlib import Path
+
+    from raxtax_tpu_torch.parallel.launch import launch
+
+    root = Path(__file__).resolve().parent.parent
+    data = root / "tests" / "data"
+    for name, flags in (("global", ["--global-mesh", "--mesh", "1,2"]),
+                        ("independent", [])):
+        out = tmp_path / name
+        codes, logs = launch(
+            2, ["-m", "raxtax_tpu_torch.cli", "-d", str(data / "golden_refs.fasta"),
+                "-i", str(data / "golden_queries.fasta"), "-o", str(out),
+                "--tsv", "--batch-size", "4", *flags],
+            env=dict(os.environ, PYTHONPATH=str(root)), timeout=600,
+            cwd=str(root))
+        assert codes == [0, 0], "\n".join(logs)[-4000:]
+        for ext in ("out", "tsv"):
+            assert (out / f"raxtax.{ext}").read_bytes() == (
+                data / f"golden_raxtax.{ext}").read_bytes()
+        assert not list(out.glob("*.shard*"))
+        if flags:
+            log = (out / "raxtax.log").read_text()
+            assert "mesh collectives copied" in log and " 0 CUDA" not in log

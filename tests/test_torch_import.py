@@ -40,6 +40,8 @@ def test_import_pulls_no_jax():
         "import raxtax_tpu_torch.tools.plot_runtime_memory\n"
         "import raxtax_tpu_torch.tools.compare_descents\n"
         "import raxtax_tpu_torch.prob.oracle, raxtax_tpu_torch.utils.trace\n"
+        "import raxtax_tpu_torch.parallel.mesh, raxtax_tpu_torch.parallel.multihost\n"
+        "import raxtax_tpu_torch.parallel.launch, raxtax_tpu_torch.tools.speedup\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'raxtax_tpu', 'tests', 'bench', 'scripts', 'psutil')]\n"
         "print('BAD', bad)\n"
@@ -74,6 +76,9 @@ def test_sources_name_the_jax_package_only_in_prose():
     )
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for part in ("parallel/mesh.py", "parallel/multihost.py",
+                 "parallel/launch.py", "tools/speedup.py"):
+        assert PKG / part in files
     for f in files:
         assert not pat.search(f.read_text()), f
 
