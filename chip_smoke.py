@@ -62,7 +62,11 @@ It needs no arguments, no network and no JAX. It
     ``--global-mesh --mesh 2,1`` and two independent ranks, each merged
     ``raxtax.out``/``.tsv`` byte-equal to the single-process run and no
     ``.shard*`` file left, with the gloo host-copy count, and a
-    ``tools/speedup.py --devices 1 2`` sweep (``mesh_ranks_65k``),
+    ``tools/speedup.py --devices 1 2`` sweep (``mesh_ranks_65k``), then the
+    graft entry points of ``tools/dryrun.py``: ``entry()`` eager and
+    compiled against the CPU, ``dryrun_multichip(8)`` on eight ranks sharing
+    the card over gloo (mesh ``2,4``, launches by kernel from rank 0) and
+    ``dryrun_multiprocess(2)`` (``dryrun``),
 12. runs the CLI with ``--trace DIR`` on a 20,000-record synthetic FASTA in
     a child and finds K1's kernel in the trace (``trace``, after the 65,536
     phases), and the bench ``tools/bench.py`` in a child under what is left
@@ -240,34 +244,9 @@ def check_oracle(db, queries, outs, tsvs, n: int, skip=False, raw=False):
 
 
 def launch_counts():
-    from raxtax_tpu_torch.ops.exactf64 import probe_f64_ew, probe_f64_scan
-    from raxtax_tpu_torch.ops.exactscan import exact_cumsum
-    from raxtax_tpu_torch.ops.intersect_fold import (
-        fold_planes,
-        fold_planes_gathered,
-        fold_planes_sparse,
-    )
-    from raxtax_tpu_torch.ops.intersect_stream import fold_planes_stream
-    from raxtax_tpu_torch.ops.opchain import probe_op_chain
-    from raxtax_tpu_torch.ops.planes import (
-        dd_cumsum,
-        dd_cumsum_bitmajor,
-        planes_high_counts,
-        planes_histogram,
-        planes_probs,
-    )
+    from raxtax_tpu_torch.ops._build import kernel_wrappers
 
-    return {
-        "fold_planes": fold_planes, "planes_hist": planes_histogram,
-        "planes_probs": planes_probs, "exact_cumsum": exact_cumsum,
-        "fold_planes_sparse": fold_planes_sparse,
-        "planes_high": planes_high_counts, "dd_cumsum": dd_cumsum,
-        "dd_cumsum_bitmajor": dd_cumsum_bitmajor,
-        "fold_planes_gathered": fold_planes_gathered,
-        "fold_planes_stream": fold_planes_stream,
-        "probe_f64_ew": probe_f64_ew, "probe_f64_scan": probe_f64_scan,
-        "probe_op_chain": probe_op_chain,
-    }
+    return kernel_wrappers()
 
 
 #: the kernels each mode's main path runs
@@ -1642,6 +1621,73 @@ def phase_mesh_ranks_65k() -> dict:
     return line
 
 
+#: ranks of the mesh dry run: the ``n_devices`` of MULTICHIP_r05.json
+DRYRUN_RANKS = 8
+
+
+def phase_dryrun() -> dict:
+    """The graft entry points (``tools/dryrun.py``, the port's
+    ``__graft_entry__.py``): ``entry()`` on the card eager and under
+    ``torch.compile``, both bit-equal to the same step on the CPU (f32
+    unpack against the card's f16: both exact for counts up to 2,048);
+    ``dryrun_multichip(8)``, eight ranks sharing the card over gloo on a
+    mesh ``2,4``, every backend's lines byte-equal to one device's, rank 0
+    having launched K9, K3, K4 and K6 under ``pallas`` and K10, K3, K4 and
+    K6 under ``stream``; then ``dryrun_multiprocess(2)``. The eight ranks
+    must end inside the budget: fewer are never tried."""
+    from raxtax_tpu_torch.tools import dryrun
+
+    seconds = {}
+    t0 = time.time()
+    fn, args = dryrun.entry()
+    eager = fn(*args)
+    torch.cuda.synchronize()
+    seconds["entry_eager"] = time.time() - t0
+    t0 = time.time()
+    compiled = torch.compile(fn)(*args)
+    torch.cuda.synchronize()
+    seconds["entry_compiled"] = time.time() - t0
+    cpu_fn, cpu_args = dryrun.entry("cpu")
+    on_cpu = cpu_fn(*cpu_args)
+    for name, e, c, h in zip(("hist", "vals", "idx"), eager, compiled, on_cpu):
+        if not dryrun.same_bits(e, c):
+            raise AssertionError(f"dryrun entry: compiled {name} differs")
+        if not dryrun.same_bits(e, h):
+            raise AssertionError(f"dryrun entry: {name} differs from the CPU")
+    del fn, args, eager, compiled
+    torch.cuda.empty_cache()  # the ranks are children with their own contexts
+    if remaining() <= 0:
+        raise AssertionError(f"dryrun: no budget left for {DRYRUN_RANKS} ranks")
+    t0 = time.time()
+    mc = dryrun.dryrun_multichip(DRYRUN_RANKS, timeout=remaining(), log=note)
+    seconds["multichip"] = time.time() - t0
+    if mc["world_backend"] != "gloo":
+        raise AssertionError(f"dryrun_multichip: {mc['world_backend']}")
+    for backend in ("pallas", "stream"):
+        missing = [k for k in MESH_PATH[backend]
+                   if not mc["launches"][backend].get(k)]
+        if missing:
+            raise AssertionError(
+                f"dryrun_multichip {backend}: rank 0 did not launch {missing}")
+    t0 = time.time()
+    mp = dryrun.dryrun_multiprocess(2, log=note)
+    seconds["multiprocess"] = time.time() - t0
+    return {
+        "phase": "dryrun", "seconds": seconds,
+        "entry": {"shapes": [list(o.shape) for o in on_cpu],
+                  "bit_equal": ["eager", "compiled", "cpu"]},
+        "multichip": {
+            "ranks": mc["ranks"], "lines": mc["lines"],
+            "launches_rank0": mc["launches"],
+            "peak_device_bytes_rank0": mc["peak_device_bytes"],
+            "world_backend": mc["world_backend"],
+            "equal_to_single_device": True,
+        },
+        "multiprocess": {k: mp[k] for k in ("processes", "lines",
+                                            "equal_to_single")},
+    }
+
+
 #: records of the trace phase's synthetic FASTA, and its queries (the first
 #: records again: every query has an exact match)
 TRACE_RECORDS, TRACE_QUERIES = 20_000, 512
@@ -1826,7 +1872,9 @@ def main() -> int:
     say(phase_fuzz())
     note("fuzz done; the CLI in two ranks")
     say(phase_mesh_ranks_65k())
-    note("mesh ranks done; the bench")
+    note("mesh ranks done; the graft entry points")
+    say(phase_dryrun())
+    note("dry runs done; the bench")
     bench_lines = phase_bench()
     for line in bench_lines:
         say(line)

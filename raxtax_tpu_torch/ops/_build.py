@@ -148,6 +148,39 @@ def entry(stem: str, name: str, argtypes: list, restype=ctypes.c_int):
     return fn
 
 
+def kernel_wrappers() -> dict:
+    """The thirteen kernels' wrappers by name. Each adds one to its
+    ``launches`` where it launches its kernel, and nowhere else."""
+    from .exactf64 import probe_f64_ew, probe_f64_scan
+    from .exactscan import exact_cumsum
+    from .intersect_fold import (
+        fold_planes,
+        fold_planes_gathered,
+        fold_planes_sparse,
+    )
+    from .intersect_stream import fold_planes_stream
+    from .opchain import probe_op_chain
+    from .planes import (
+        dd_cumsum,
+        dd_cumsum_bitmajor,
+        planes_high_counts,
+        planes_histogram,
+        planes_probs,
+    )
+
+    return {
+        "fold_planes": fold_planes, "planes_hist": planes_histogram,
+        "planes_probs": planes_probs, "exact_cumsum": exact_cumsum,
+        "fold_planes_sparse": fold_planes_sparse,
+        "planes_high": planes_high_counts, "dd_cumsum": dd_cumsum,
+        "dd_cumsum_bitmajor": dd_cumsum_bitmajor,
+        "fold_planes_gathered": fold_planes_gathered,
+        "fold_planes_stream": fold_planes_stream,
+        "probe_f64_ew": probe_f64_ew, "probe_f64_scan": probe_f64_scan,
+        "probe_op_chain": probe_op_chain,
+    }
+
+
 def check(stem: str, code: int, what: str) -> None:
     """Raise when a kernel entry point reported a CUDA error."""
     if code != 0:

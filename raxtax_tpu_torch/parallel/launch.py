@@ -10,7 +10,7 @@ machine is ``n`` processes. Each child is ``python <args>`` with
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), which
 ``parallel/multihost.maybe_initialize`` reads. :func:`launch` returns every
 rank's exit code and log; the ranks of a failed start are stopped, never
-left behind.
+left behind. :func:`run_all` does the same for commands of their own.
 """
 
 from __future__ import annotations
@@ -45,27 +45,35 @@ def launch(n: int, args: list[str], env: dict | None = None,
            timeout: float = 600.0,
            cwd: str | None = None) -> tuple[list[int], list[str]]:
     """Run ``python *args`` as ranks ``0..n-1`` of one world and wait for
-    all. After ``timeout`` seconds, or as soon as one rank exits with an
-    error, every rank still running is killed (exit code -9). Returns
-    ``(exit codes, logs)`` in rank order; each log is the rank's standard
-    output and error."""
+    all (:func:`run_all`). Returns ``(exit codes, logs)`` in rank order."""
     port = free_port()
+    return run_all([[sys.executable, *args]] * n,
+                   [rank_env(r, n, port, env) for r in range(n)],
+                   timeout=timeout, cwd=cwd)
+
+
+def run_all(cmds: list[list[str]], envs: list[dict], timeout: float = 600.0,
+            cwd: str | None = None) -> tuple[list[int], list[str]]:
+    """Start every command (with its environment) at once and wait for all.
+    After ``timeout`` seconds, or as soon as one exits with an error, every
+    one still running is killed (exit code -9). Returns ``(exit codes,
+    logs)`` in order; each log is the process's standard output and
+    error."""
     tmp = tempfile.TemporaryDirectory()
-    paths = [Path(tmp.name) / f"rank{r}.log" for r in range(n)]
+    paths = [Path(tmp.name) / f"proc{i}.log" for i in range(len(cmds))]
     procs = []
     try:
-        for r in range(n):
-            with open(paths[r], "w") as f:
+        for cmd, env, path in zip(cmds, envs, paths):
+            with open(path, "w") as f:
                 procs.append(subprocess.Popen(
-                    [sys.executable, *args], env=rank_env(r, n, port, env),
-                    stdout=f, stderr=subprocess.STDOUT, cwd=cwd,
+                    cmd, env=env, stdout=f, stderr=subprocess.STDOUT, cwd=cwd,
                 ))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             failed = any(p.poll() not in (None, 0) for p in procs)
             if failed or time.monotonic() > deadline:
-                # a rank down (the others would wait in a collective) or
-                # the time is up: stop the rest
+                # one down (ranks would wait for it in a collective) or the
+                # time is up: stop the rest
                 for p in procs:
                     if p.poll() is None:
                         p.kill()

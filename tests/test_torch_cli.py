@@ -124,10 +124,9 @@ def test_only_db_then_skip_db_and_oracle_backend(tmp_path):
          "--global-mesh spans the world of 2 ranks"),
     ],
 )
-def test_unported_flags_exit_with_their_message(tmp_path, capsys, flags, name):
-    """The mesh and multi-process flags run (the test keeps the name it had
-    while they were refused); what they refuse exits 2 with its message,
-    before anything is written."""
+def test_mesh_flags_usage_errors_exit_2(tmp_path, capsys, flags, name):
+    """What the mesh and multi-process flags refuse exits 2 with its
+    message, before anything is written."""
     out = tmp_path / "out"
     with pytest.raises(SystemExit) as e:
         run_cli(out, *flags)

@@ -202,10 +202,9 @@ def test_cli_descent_device_and_trace_run(tmp_path, monkeypatch):
     assert len(files) == 1 and b"traceEvents" in files[0].read_bytes()[:4096]
 
 
-def test_mesh_still_exits_69(tmp_path):
-    """``--mesh 1,1 --device cpu`` (the test keeps the name it had while the
-    flag was refused): a world of one rank and the sharded pipeline,
-    byte-equal to the goldens."""
+def test_mesh_1_1_cli_run_is_byte_equal_to_the_goldens(tmp_path):
+    """``--mesh 1,1 --device cpu``: a world of one rank and the sharded
+    pipeline, byte-equal to the goldens."""
     out = tmp_path / "out"
     assert _cli(out, "--mesh", "1,1") == 0
     for ext in ("out", "tsv"):

@@ -42,6 +42,7 @@ def test_import_pulls_no_jax():
         "import raxtax_tpu_torch.prob.oracle, raxtax_tpu_torch.utils.trace\n"
         "import raxtax_tpu_torch.parallel.mesh, raxtax_tpu_torch.parallel.multihost\n"
         "import raxtax_tpu_torch.parallel.launch, raxtax_tpu_torch.tools.speedup\n"
+        "import raxtax_tpu_torch.tools.dryrun\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'raxtax_tpu', 'tests', 'bench', 'scripts', 'psutil')]\n"
         "print('BAD', bad)\n"
@@ -77,7 +78,7 @@ def test_sources_name_the_jax_package_only_in_prose():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     for part in ("parallel/mesh.py", "parallel/multihost.py",
-                 "parallel/launch.py", "tools/speedup.py"):
+                 "parallel/launch.py", "tools/speedup.py", "tools/dryrun.py"):
         assert PKG / part in files
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -99,20 +100,54 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked():
 
 
 def test_new_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
-    """The bench, ``bench_scale`` and the profiling scripts run on the GPU
-    by default and raise before any work without one."""
+    """The bench, ``bench_scale``, the profiling scripts and the graft
+    entry points (``tools/dryrun.py``) run on the GPU by default and raise
+    before any work without one."""
     import torch
 
-    from raxtax_tpu_torch.tools import bench, bench_scale, probe_prepare, probe_sig
+    from raxtax_tpu_torch.tools import (
+        bench,
+        bench_scale,
+        dryrun,
+        probe_prepare,
+        probe_sig,
+    )
 
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a GPU")
-    monkeypatch.setattr(bench, "config", lambda: pytest.fail("work began"))
-    for main in (bench.main, probe_prepare.main, probe_sig.main):
+
+    def work_began(*a, **k):
+        pytest.fail("work began")
+
+    monkeypatch.setattr(bench, "config", work_began)
+    monkeypatch.setattr(dryrun, "tiny_world", work_began)
+    monkeypatch.setattr(dryrun, "_prepare_ranks", work_began)
+    for main in (bench.main, probe_prepare.main, probe_sig.main, dryrun.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main([])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_scale.main(["--refs", "10"])
+    for call in (dryrun.entry, lambda: dryrun.dryrun_multichip(2),
+                 lambda: dryrun.dryrun_multiprocess(2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.entry("cuda")
+
+
+def test_pyproject_lists_every_package_of_the_port():
+    """Every directory of the port holding an ``__init__.py`` is a package
+    that ``pyproject.toml`` names, or an installed wheel lacks its files."""
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        listed = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    found = {
+        ".".join(p.parent.relative_to(ROOT).parts)
+        for p in PKG.rglob("__init__.py")
+    }
+    assert "raxtax_tpu_torch.parallel" in found
+    assert found <= listed, sorted(found - listed)
 
 
 def test_create_without_gpu_raises():
