@@ -431,10 +431,13 @@ def _run(args, plan) -> int:
         writer = ResultWriter(writers)
         try:
             if args.trace is not None:
+                from .engine.classify import make_classifier
                 from .utils.trace import classification_trace
 
-                with classification_trace(args.trace, args.device):
-                    run_queries(db, queries, args, writer)
+                with classification_trace(args.trace, args.device) as counters:
+                    clf = make_classifier(db, args, n_queries_hint=len(queries))
+                    run_queries(db, queries, args, writer, classifier=clf)
+                    counters.update(getattr(clf, "counters", {}))
             else:
                 run_queries(db, queries, args, writer)
         except Exception as e:

@@ -16,6 +16,7 @@ from ..db.database import Database
 from ..io.outputs import ResultWriter
 from ..models.oracle import OracleClassifier, QueryResult
 from ..utils.logging import Progress, phase_timer, report_warning
+from ..utils.trace import span
 
 log = logging.getLogger("raxtax")
 
@@ -96,6 +97,18 @@ def run_queries(
     """
     if classifier is None:
         classifier = make_classifier(db, args, n_queries_hint=len(queries))
+    with span("query.run"):
+        warnings = _run(queries, args, writer, classifier)
+    if warnings:
+        report_warning(
+            "Exact matches for some queries differ above the species level! "
+            "Check the log file for more information!"
+        )
+    return warnings
+
+
+def _run(queries, args, writer: ResultWriter, classifier) -> bool:
+    """The batch loop of :func:`run_queries`; returns its warning flag."""
     warnings = False
     progress = Progress(len(queries), "Running Queries...")
     tsv = args.tsv
@@ -117,12 +130,13 @@ def run_queries(
         # buckets to the global max BEFORE batch 1
         from .. import native
 
-        counts = native.distinct_kmer_counts([s for _, s in queries])
-        if counts is None:
-            from ..utils.encoding import sequence_to_kmers
+        with span("query.prewarm"):
+            counts = native.distinct_kmer_counts([s for _, s in queries])
+            if counts is None:
+                from ..utils.encoding import sequence_to_kmers
 
-            counts = [sequence_to_kmers(s).size for _, s in queries]
-        classifier.prewarm(int(max(counts)))
+                counts = [sequence_to_kmers(s).size for _, s in queries]
+            classifier.prewarm(int(max(counts)))
 
     with phase_timer("raxtax"):
         if hasattr(classifier, "submit_batch"):
@@ -149,9 +163,4 @@ def run_queries(
                 chunk = queries[start : start + batch_size]
                 emit([classifier.classify(l, s) for l, s in chunk])
     progress.finish()
-    if warnings:
-        report_warning(
-            "Exact matches for some queries differ above the species level! "
-            "Check the log file for more information!"
-        )
     return warnings

@@ -61,7 +61,6 @@ All O(num_refs) work runs on the device; the host touches histograms,
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -111,6 +110,7 @@ from ..ops.planes import (
 from ..prob.model import KTableCache, normalized_size_probs
 from ..utils.device import resolve_device
 from ..utils.encoding import round_half_away, sequence_to_kmers
+from ..utils.trace import span
 
 log = logging.getLogger("raxtax")
 
@@ -167,6 +167,8 @@ class _Submitted:
     planes: torch.Tensor
     hist_host: torch.Tensor
     ready: object
+    #: the batch's sequence number, carried by its spans
+    seq: int
 
 
 @dataclass
@@ -194,6 +196,7 @@ class _Prepared:
     #: the full-width lookup was used)
     sig_wire: tuple | None = None
     table: torch.Tensor | None = None  #: dd: [B, s_max] f32 on the device
+    seq: int = 0  #: the batch's sequence number, carried by its spans
 
 
 def _round_up(x: int, m: int) -> int:
@@ -282,13 +285,29 @@ class DeviceClassifier:
     #: [pairs, queries with a pair, most pairs of one query] folded by the
     #: sparse kernel since creation
     pair_stats: list = field(default_factory=lambda: [0, 0, 0], repr=False)
+    #: counts since creation: real queries submitted (``queries``), queries
+    #: whose histogram has a reference holding all their 8-mers, the host
+    #: model's closed form (``model.closed_form``), probability tables built
+    #: (``ktable.builds``), and (query, node) sites handed to the descents
+    #: (``descent.sites``)
+    counters: dict = field(
+        default_factory=lambda: dict.fromkeys(
+            ("queries", "model.closed_form", "ktable.builds",
+             "descent.sites"), 0,
+        ),
+        repr=False,
+    )
+    #: sequence number of the last submitted batch
+    _batch_seq: int = field(default=0, repr=False)
     _cache: KTableCache = field(default_factory=KTableCache, repr=False)
     _evaluator: object = field(default=None, repr=False)
     #: sticky high-water shape buckets: the pad levels only grow, so a
     #: mixed-length query stream keeps one set of tensor shapes
     _k_pad_hw: int = field(default=0, repr=False)
     _s_max_hw: int = field(default=0, repr=False)
-    #: host seconds spent per phase since creation; the three ``finalize_*``
+    #: host seconds spent per phase since creation, from the spans
+    #: ``engine.submit``, ``engine.prepare``, ``engine.finalize`` and
+    #: ``engine.finalize.{pull,descend,eval}``; the three ``finalize_*``
     #: entries split ``finalize`` into the significant-set pull (which waits
     #: for the device), the descents and the host evaluation
     phase_seconds: dict = field(
@@ -522,107 +541,118 @@ class DeviceClassifier:
         pinned buffer through a non-blocking copy), so the caller can
         overlap this batch's device compute with the previous batches' host
         stages."""
-        t_start = time.perf_counter()
         st = self.state
         n_real = len(chunk)
         B = self.batch_size
         if n_real > B:
             raise ValueError("chunk larger than the batch size")
-        labels = [l for l, _ in chunk]
-        seqs = [s for _, s in chunk]
+        self._batch_seq += 1
+        seq = self._batch_seq
+        self.counters["queries"] += n_real
+        with span("engine.submit", seq) as sp:
+            with span("engine.submit.kmers", seq):
+                labels = [l for l, _ in chunk]
+                seqs = [s for _, s in chunk]
 
-        # one native pass extracts every query's sorted distinct 8-mers, one
-        # vectorized pass answers every exact-match lookup
-        res = native.distinct_kmers_flat(seqs)
-        kmer_sets = None
-        if res is not None:
-            flat_k, off_k = res
-            ks_r = np.diff(off_k[: n_real + 1])
-        else:
-            kmer_sets = [sequence_to_kmers(s) for s in seqs]
-            ks_r = np.array([k.size for k in kmer_sets], np.int64)
-        assert (
-            not n_real or int(ks_r.max(initial=0)) <= 0xFFFF
-        ), "too many distinct query k-mers"
-        exact = self.db.exact_map.get_batch(seqs)
+                # one native pass extracts every query's sorted distinct
+                # 8-mers, one vectorized pass answers every exact-match lookup
+                res = native.distinct_kmers_flat(seqs)
+                kmer_sets = None
+                if res is not None:
+                    flat_k, off_k = res
+                    ks_r = np.diff(off_k[: n_real + 1])
+                else:
+                    kmer_sets = [sequence_to_kmers(s) for s in seqs]
+                    ks_r = np.array([k.size for k in kmer_sets], np.int64)
+                assert (
+                    not n_real or int(ks_r.max(initial=0)) <= 0xFFFF
+                ), "too many distinct query k-mers"
+                exact = self.db.exact_map.get_batch(seqs)
 
-        k_max = max(int(ks_r.max(initial=0)), 1) if n_real else 1
-        k_pad = _round_up(k_max, 32 if k_max <= 128 else 128)
-        k_pad = max(k_pad, self._k_pad_hw)
-        self._k_pad_hw = k_pad
-        kmer_idx = np.full((B, k_pad), PAD_ROW, dtype=np.int32)
-        if kmer_sets is not None:
-            for i, km in enumerate(kmer_sets):
-                kmer_idx[i, : km.size] = km
-        elif n_real:
-            mask = np.arange(k_pad)[None, :] < ks_r[:, None]
-            kmer_idx[:n_real][mask] = flat_k[: off_k[n_real]]
+                k_max = max(int(ks_r.max(initial=0)), 1) if n_real else 1
+                k_pad = _round_up(k_max, 32 if k_max <= 128 else 128)
+                k_pad = max(k_pad, self._k_pad_hw)
+                self._k_pad_hw = k_pad
+                kmer_idx = np.full((B, k_pad), PAD_ROW, dtype=np.int32)
+                if kmer_sets is not None:
+                    for i, km in enumerate(kmer_sets):
+                        kmer_idx[i, : km.size] = km
+                elif n_real:
+                    mask = np.arange(k_pad)[None, :] < ks_r[:, None]
+                    kmer_idx[:n_real][mask] = flat_k[: off_k[n_real]]
 
-        # pad the batch to the fixed size with empty queries
-        ks = [int(x) for x in ks_r] + [0] * (B - n_real)
-        s_max = _round_up(max(ks) + 1, 128)
-        s_max = max(s_max, self._s_max_hw)
-        self._s_max_hw = s_max
-        e_pad = (
-            max((len(e) for e in exact), default=0)
-            if self.skip_exact_matches
-            else 0
-        )
+                # pad the batch to the fixed size with empty queries
+                ks = [int(x) for x in ks_r] + [0] * (B - n_real)
+                s_max = _round_up(max(ks) + 1, 128)
+                s_max = max(s_max, self._s_max_hw)
+                self._s_max_hw = s_max
+                e_pad = (
+                    max((len(e) for e in exact), default=0)
+                    if self.skip_exact_matches
+                    else 0
+                )
 
-        ids = None
-        if e_pad:
-            ids = np.full((B, e_pad), -1, dtype=np.int64)
-            for i, e in enumerate(exact):
-                ids[i, : len(e)] = e
-        if self.pipeline is not None:
-            planes, hist_dev = self.pipeline.counts_and_hist(
-                kmer_idx, ids, s_max,
-                query_bits=self._query_rows(seqs, kmer_sets)
-                if self.counts == "dense" else None,
-            )
-        elif self.counts == "dense":
-            planes = self._dense_counts(seqs, kmer_sets)
-            if ids is not None:
-                planes = zero_reference_ids(planes, self._to_device(ids))
-            hist_dev = intersection_histogram(planes, s_max)
-        else:
-            planes = None
-            if self._sparse:
-                planes = self._sparse_counts(kmer_idx, k_pad)
-            elif self.fold == "stream":
-                planes = intersection_planes_stream(
-                    self._to_device(kmer_idx), st.kmer_major3, max_count=k_pad
-                )
-            elif self.fold == "gathered":
-                planes = intersection_planes_gathered(
-                    self._to_device(kmer_idx), st.kmer_major3, max_count=k_pad
-                )
-            if planes is None:
-                planes = fold_planes(
-                    self._to_device(kmer_idx),
-                    self._to_device(np.asarray(ks, np.int32)),
-                    st.kmer_major3,
-                    max_count=k_pad,
-                )
-            if ids is not None:
-                planes = zero_tips_in_planes(
-                    planes, self._to_device(ids), layout=st.layout
-                )
-            hist_dev = planes_histogram(planes, s_max, self.db.num_tips)
-        if st.device.type == "cuda":
-            # the phase-B sync point: a pinned buffer and a non-blocking
-            # copy, so this call returns while the device still works
-            hist_host = torch.empty(
-                hist_dev.shape, dtype=hist_dev.dtype, pin_memory=True
-            )
-            hist_host.copy_(hist_dev, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(st.device))
-        else:
-            hist_host, ready = hist_dev, None
-        self.phase_seconds["submit"] += time.perf_counter() - t_start
+                ids = None
+                if e_pad:
+                    ids = np.full((B, e_pad), -1, dtype=np.int64)
+                    for i, e in enumerate(exact):
+                        ids[i, : len(e)] = e
+            with span("engine.submit.dispatch", seq):
+                if self.pipeline is not None:
+                    planes, hist_dev = self.pipeline.counts_and_hist(
+                        kmer_idx, ids, s_max,
+                        query_bits=self._query_rows(seqs, kmer_sets)
+                        if self.counts == "dense" else None,
+                    )
+                elif self.counts == "dense":
+                    planes = self._dense_counts(seqs, kmer_sets)
+                    if ids is not None:
+                        planes = zero_reference_ids(
+                            planes, self._to_device(ids)
+                        )
+                    hist_dev = intersection_histogram(planes, s_max)
+                else:
+                    planes = None
+                    if self._sparse:
+                        planes = self._sparse_counts(kmer_idx, k_pad)
+                    elif self.fold == "stream":
+                        planes = intersection_planes_stream(
+                            self._to_device(kmer_idx), st.kmer_major3,
+                            max_count=k_pad,
+                        )
+                    elif self.fold == "gathered":
+                        planes = intersection_planes_gathered(
+                            self._to_device(kmer_idx), st.kmer_major3,
+                            max_count=k_pad,
+                        )
+                    if planes is None:
+                        planes = fold_planes(
+                            self._to_device(kmer_idx),
+                            self._to_device(np.asarray(ks, np.int32)),
+                            st.kmer_major3,
+                            max_count=k_pad,
+                        )
+                    if ids is not None:
+                        planes = zero_tips_in_planes(
+                            planes, self._to_device(ids), layout=st.layout
+                        )
+                    hist_dev = planes_histogram(planes, s_max, self.db.num_tips)
+                if st.device.type == "cuda":
+                    # the phase-B sync point: a pinned buffer and a
+                    # non-blocking copy, so this call returns while the device
+                    # still works
+                    hist_host = torch.empty(
+                        hist_dev.shape, dtype=hist_dev.dtype, pin_memory=True
+                    )
+                    hist_host.copy_(hist_dev, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(st.device))
+                else:
+                    hist_host, ready = hist_dev, None
+        self.phase_seconds["submit"] += sp.seconds
         return _Submitted(
-            labels, seqs, exact, ks, s_max, n_real, planes, hist_host, ready
+            labels, seqs, exact, ks, s_max, n_real, planes, hist_host, ready,
+            seq,
         )
 
     def _significant_dd(self, planes, table, wire):
@@ -644,64 +674,68 @@ class DeviceClassifier:
         The significant set is not pulled here, so a following phase-A
         dispatch of the next batch queues right behind this batch's device
         work."""
-        t_start = time.perf_counter()
-        ks, s_max, n_real, planes = state.ks, state.s_max, state.n_real, state.planes
-        st = self.state
-        exact_mode = self._exact_mode
-        wire = None
-        dense = self.counts == "dense"
-        if self.pipeline is not None:
-            pass  # full-width lookup; replays gather rows over the mesh
-        elif dense:
-            # the nibble wire, once host replays have been dense; sparse
-            # replays gather u16 count rows per query instead. A device
-            # descent replays nothing
-            if self._fb_dense and self.descent == "exact":
-                wire = compress_counts(planes)
-        elif not exact_mode and not self._mux_dense:
-            # the overflow lists feed the low-bit lookup's fix-up on the
-            # device; the lo4 planes are the host wire, gathered per query
-            # when a replay asks for them. Skipped in dense-count mode (the
-            # full-width lookup needs no fix-up; replays decode the planes)
-            wire = compress_planes(
-                planes, budget=self._over_budget, layout=st.layout
-            )
-        if state.ready is not None:
-            state.ready.synchronize()
-        hist = state.hist_host.numpy()
-        if self.pipeline is not None:
-            # every tip of every stripe was counted: padded ones at size 0
-            hist[:, 0] -= self.pipeline.n_padded - self.db.num_tips
-        if self.debug_checks:
-            # device-stage integrity: every reference lands in exactly one
-            # histogram bucket, and no intersection can exceed the query's
-            # distinct-k-mer count (src/raxtax.rs:56 bound)
-            sums = hist[:n_real].sum(axis=1)
-            if not (sums == self.db.num_tips).all():
-                raise AssertionError(
-                    "debug-checks: histogram mass mismatch "
-                    f"(got {sums.tolist()[:4]}..., want {self.db.num_tips})"
+        ks, s_max, n_real = state.ks, state.s_max, state.n_real
+        planes, seq = state.planes, state.seq
+        with span("engine.prepare", seq) as sp:
+            st = self.state
+            exact_mode = self._exact_mode
+            wire = None
+            dense = self.counts == "dense"
+            if self.pipeline is not None:
+                pass  # full-width lookup; replays gather rows over the mesh
+            elif dense:
+                # the nibble wire, once host replays have been dense; sparse
+                # replays gather u16 count rows per query instead. A device
+                # descent replays nothing
+                if self._fb_dense and self.descent == "exact":
+                    wire = compress_counts(planes)
+            elif not exact_mode and not self._mux_dense:
+                # the overflow lists feed the low-bit lookup's fix-up on the
+                # device; the lo4 planes are the host wire, gathered per query
+                # when a replay asks for them. Skipped in dense-count mode (the
+                # full-width lookup needs no fix-up; replays decode the planes)
+                wire = compress_planes(
+                    planes, budget=self._over_budget, layout=st.layout
                 )
-            for b in range(n_real):
-                if hist[b, ks[b] + 1 :].any():
+            with span("engine.prepare.hist_wait", seq):
+                if state.ready is not None:
+                    state.ready.synchronize()
+            hist = state.hist_host.numpy()
+            if self.pipeline is not None:
+                # every tip of every stripe was counted: padded ones at size 0
+                hist[:, 0] -= self.pipeline.n_padded - self.db.num_tips
+            if self.debug_checks:
+                # device-stage integrity: every reference lands in exactly one
+                # histogram bucket, and no intersection can exceed the query's
+                # distinct-k-mer count (src/raxtax.rs:56 bound)
+                sums = hist[:n_real].sum(axis=1)
+                if not (sums == self.db.num_tips).all():
                     raise AssertionError(
-                        "debug-checks: intersection size exceeds the "
-                        f"query's {ks[b]} distinct k-mers (query {b})"
+                        "debug-checks: histogram mass mismatch "
+                        f"(got {sums.tolist()[:4]}..., want {self.db.num_tips})"
                     )
+                for b in range(n_real):
+                    if hist[b, ks[b] + 1 :].any():
+                        raise AssertionError(
+                            "debug-checks: intersection size exceeds the "
+                            f"query's {ks[b]} distinct k-mers (query {b})"
+                        )
 
-        table64, tables64, global_signals, signal_risky = self._host_model(
-            hist, ks, n_real, s_max
-        )
-        sig, cum0, table = self._dispatch_significance(
-            planes, table64, exact_mode, wire
-        )
-        self.phase_seconds["prepare"] += time.perf_counter() - t_start
+            with span("engine.prepare.model", seq):
+                table64, tables64, global_signals, signal_risky = self._host_model(
+                    hist, ks, n_real, s_max
+                )
+            with span("engine.prepare.dispatch", seq):
+                sig, cum0, table = self._dispatch_significance(
+                    planes, table64, exact_mode, wire
+                )
+        self.phase_seconds["prepare"] += sp.seconds
         return _Prepared(
             labels=state.labels, seqs=state.seqs, exact=state.exact,
             n_real=n_real, planes=planes, tables64=tables64,
             global_signals=global_signals, signal_risky=signal_risky,
             sig=sig, cum0=cum0, exact_mode=exact_mode, wire=wire,
-            sig_wire=None if dense else wire, table=table,
+            sig_wire=None if dense else wire, table=table, seq=seq,
         )
 
     def _host_model(self, hist: np.ndarray, ks: list, n_real: int, s_max: int):
@@ -714,6 +748,10 @@ class DeviceClassifier:
         global_signals = np.zeros(B, dtype=np.float64)
         signal_risky: list[int] = []
         inv_n = 1.0 / self.db.num_tips
+        # some reference holds all of the query's 8-mers: the closed form
+        self.counters["model.closed_form"] += int(np.count_nonzero(
+            hist[np.arange(n_real), ks[:n_real]]
+        ))
         for b in range(n_real):
             probs_size, _ = normalized_size_probs(hist[b], ks[b], self._cache)
             h = hist[b, : probs_size.shape[0]].astype(np.float64)
@@ -723,6 +761,7 @@ class DeviceClassifier:
             frac = (global_signals[b] * 1e5) % 1.0
             if abs(frac - 0.5) < SIGNAL_RISK_MARGIN or self.force_signal_replay:
                 signal_risky.append(b)
+        self.counters["ktable.builds"] = self._cache.builds
         return table64, tables64, global_signals, signal_risky
 
     def _dispatch_significance(self, planes, table64: np.ndarray,
@@ -1021,16 +1060,21 @@ class DeviceClassifier:
         on the host."""
         if isinstance(state, _Submitted):  # run phase B inline
             state = self.prepare_batch(state)
-        t_start = time.perf_counter()
-        st = state
+        with span("engine.finalize", state.seq) as sp:
+            out = self._finalize(state)
+        self.phase_seconds["finalize"] += sp.seconds
+        return out
+
+    def _finalize(self, st: _Prepared) -> list[QueryResult]:
         labels, seqs, exact, n_real = st.labels, st.seqs, st.exact, st.n_real
         planes, tables64, global_signals = st.planes, st.tables64, st.global_signals
         tax = self.db.taxonomy
         eval_ids = tax.eval_ids
         ds = self.state
 
-        off, idx_f, conf64_f = self._pull_significant(st)
-        self.phase_seconds["finalize_pull"] += time.perf_counter() - t_start
+        with span("engine.finalize.pull", st.seq) as sp:
+            off, idx_f, conf64_f = self._pull_significant(st)
+        self.phase_seconds["finalize_pull"] += sp.seconds
 
         # boundary-risk replay of the global signal in the reference's
         # sequential tip order (src/lineage.rs:86-90)
@@ -1137,30 +1181,42 @@ class DeviceClassifier:
                         ):
                             sites.append((b, n))
 
-        t_descend = time.perf_counter()
-        fallback_map = self._resolve_fallbacks(sites, st, cum_cache)
-        if not st.exact_mode:
-            # only queries whose descent margin proved nothing, or whose
-            # confidences sat on a rounding boundary, needed the host. When
-            # they are dense the double-f32 path ships count rows every
-            # batch: "auto" then switches the run to the exact-f64 path,
-            # which needs no wire at all
-            need_host = self._replayed_queries | set(cum_cache)
-            self._replayed_queries = need_host
-            self._fb_dense = len(need_host) * 2 >= max(n_real, 1)
-            if (
-                self._fb_dense
-                and not self._exact_mode
-                and self.significance == "auto"
-                and self.counts == "planes"
-            ):
-                self._exact_mode = True
-                log.info(
-                    "dense host-replay pressure (%d/%d queries): switching "
-                    "to the exact-f64 path", len(need_host), n_real,
-                )
-        t_eval = time.perf_counter()
-        self.phase_seconds["finalize_descend"] += t_eval - t_descend
+        self.counters["descent.sites"] += len(sites)
+        with span("engine.finalize.descend", st.seq) as sp:
+            fallback_map = self._resolve_fallbacks(sites, st, cum_cache)
+            if not st.exact_mode:
+                # only queries whose descent margin proved nothing, or whose
+                # confidences sat on a rounding boundary, needed the host. When
+                # they are dense the double-f32 path ships count rows every
+                # batch: "auto" then switches the run to the exact-f64 path,
+                # which needs no wire at all
+                need_host = self._replayed_queries | set(cum_cache)
+                self._replayed_queries = need_host
+                self._fb_dense = len(need_host) * 2 >= max(n_real, 1)
+                if (
+                    self._fb_dense
+                    and not self._exact_mode
+                    and self.significance == "auto"
+                    and self.counts == "planes"
+                ):
+                    self._exact_mode = True
+                    log.info(
+                        "dense host-replay pressure (%d/%d queries): switching "
+                        "to the exact-f64 path", len(need_host), n_real,
+                    )
+        self.phase_seconds["finalize_descend"] += sp.seconds
+        with span("engine.finalize.eval", st.seq) as sp:
+            out = self._evaluate(st, nodes_f, conf64_f, off, sites, fallback_map)
+        self.phase_seconds["finalize_eval"] += sp.seconds
+        return out
+
+    def _evaluate(self, st: _Prepared, nodes_f, conf64_f, off, sites,
+                  fallback_map) -> list[QueryResult]:
+        """The exact-match policy, the evaluation and the formatting of a
+        finalized batch, natively where the library is present."""
+        labels, seqs, exact, n_real = st.labels, st.seqs, st.exact, st.n_real
+        global_signals = st.global_signals
+        tax = self.db.taxonomy
 
         # exact-match logging + single-match override (src/raxtax.rs:42-53,
         # 73-84); one pass, before evaluation, mirroring the reference order
@@ -1248,9 +1304,6 @@ class DeviceClassifier:
                     mislabel_warning=warned_flags[b],
                 )
             )
-        t_end = time.perf_counter()
-        self.phase_seconds["finalize_eval"] += t_end - t_eval
-        self.phase_seconds["finalize"] += t_end - t_start
         return out
 
     def classify_batch(

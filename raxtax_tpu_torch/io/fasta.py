@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils.encoding import encode_sequence
+from ..utils.trace import span
 
 _TAX_RE = re.compile(r"tax=([^;]+);")
 
@@ -166,14 +167,13 @@ def parse_query_fasta_str(
 def parse_query_fasta_file(
     path: str | Path, queries_to_skip: set[str] | None = None
 ) -> list[tuple[str, np.ndarray]]:
-    data = read_bytes(path)
     from .. import native
 
-    parsed = native.parse_fasta(data, with_tax=False)
-    if parsed is not None:
+    with span("query.parse"):
+        data = read_bytes(path)
+        parsed = native.parse_fasta(data, with_tax=False)
+        if parsed is None:
+            return parse_query_fasta_str(data.decode("utf-8"), queries_to_skip)
         labels, seqs = parsed
         skip = queries_to_skip or set()
-        return [
-            (lab, s) for lab, s in zip(labels, seqs) if lab not in skip
-        ]
-    return parse_query_fasta_str(data.decode("utf-8"), queries_to_skip)
+        return [(lab, s) for lab, s in zip(labels, seqs) if lab not in skip]

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import IO
 
+from ..utils.trace import span
 from .checkpoint import Checkpoint, check_incomplete_output
 
 log = logging.getLogger("raxtax")
@@ -221,6 +222,7 @@ class ResultWriter:
 
     def join(self):
         self.queue.put(self._SENTINEL)
-        self._thread.join()
+        with span("writer.join"):
+            self._thread.join()
         if self.error is not None:
             raise self.error

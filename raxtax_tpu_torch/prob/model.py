@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 from scipy.special import gammaln
 
+from ..utils.trace import span
+
 NEG_INF = float("-inf")
 
 
@@ -132,6 +134,8 @@ class KTableCache:
         self._cache: dict[int, KTables] = {}
         self._max_bytes = max_bytes
         self._bytes = 0
+        #: tables built (misses) since creation
+        self.builds = 0
 
     @staticmethod
     def _entry_bytes(t: KTables) -> int:
@@ -146,7 +150,9 @@ class KTableCache:
     def get(self, K: int) -> KTables:
         t = self._cache.get(K)
         if t is None:
-            t = build_k_tables(K)
+            with span("model.ktable_build"):
+                t = build_k_tables(K)
+            self.builds += 1
             sz = self._entry_bytes(t)
             while self._cache and self._bytes + sz > self._max_bytes:
                 oldest = next(iter(self._cache))  # insertion-ordered LRU

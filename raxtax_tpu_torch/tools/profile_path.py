@@ -7,8 +7,8 @@ classify loop on a synthetic world.
     python -m raxtax_tpu_torch.tools.profile_path --counts dense --refs 65536
 
 Prints one JSON object: wall seconds of the profiled window, the device's
-busy milliseconds and idle share in it, host seconds per engine phase, and
-the kernels by device time. Needs a GPU; there is no CPU mode.
+summed kernel milliseconds in it, host seconds per engine phase, and the
+kernels by device time. Needs a GPU; there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -139,9 +139,6 @@ def main(argv=None) -> int:
         "queries": done, "db_build_s": round(build_s, 2),
         "wall_s": wall_s, "queries_per_s": done / wall_s,
         "device_busy_ms": busy_ms if rows else "not measured",
-        "device_idle_share": (
-            1.0 - busy_ms / (wall_s * 1e3) if rows else "not measured"
-        ),
         "host_phase_s": dict(clf.phase_seconds),
         "device_ms_by_kernel": [
             {"name": n[:100], "ms": round(ms, 3), "calls": c}

@@ -14,6 +14,7 @@ also byte-equal to the goldens, the device descents end at the same nodes.
 Then the CLI: the environment mapping, ``--descent device`` and ``--trace``
 on the CPU, and ``--mesh 1,1``."""
 
+import json
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -184,7 +185,7 @@ def _cli(out, *extra):
 def test_cli_descent_device_and_trace_run(tmp_path, monkeypatch):
     """``--descent device`` on the double-f32 path and ``--trace DIR`` on the
     default path exit 0 and write their outputs; the trace is a profiler
-    JSON file in DIR."""
+    JSON file in DIR that holds the program's spans and counters."""
     from raxtax_tpu_torch.utils.trace import trace_files
 
     for name in ENV_NAMES:
@@ -200,6 +201,18 @@ def test_cli_descent_device_and_trace_run(tmp_path, monkeypatch):
     assert (out / "raxtax.out").read_bytes() == (DATA / "golden_raxtax.out").read_bytes()
     files = trace_files(tmp_path / "tr")
     assert len(files) == 1 and b"traceEvents" in files[0].read_bytes()[:4096]
+    # the program's spans of the classification phase ride in the same
+    # file: three batches of four
+    spans = [e for e in json.loads(files[0].read_text())["traceEvents"]
+             if e.get("cat") == "program_span"]
+    names = {e["name"] for e in spans}
+    assert {"query.run", "query.prewarm", "engine.prepare.model"} <= names
+    assert sorted(e["args"]["batch"] for e in spans
+                  if e["name"] == "engine.finalize") == [1, 2, 3]
+    # and the classifier's counters over the phase, twelve queries
+    counters = json.loads(files[0].read_text())["programCounters"]
+    assert counters["queries"] == 12 and counters["spans.dropped"] == 0
+    assert {"model.closed_form", "ktable.builds", "descent.sites"} <= set(counters)
 
 
 def test_mesh_1_1_cli_run_is_byte_equal_to_the_goldens(tmp_path):

@@ -748,3 +748,44 @@ def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
         if flags:
             log = (out / "raxtax.log").read_text()
             assert "mesh collectives copied" in log and " 0 CUDA" not in log
+
+
+def test_span_clock_holds_each_kernel_inside_its_span(cuda):
+    """The recorder's clock against the profiler's device clock: in each of
+    100 spans a kernel of known length (``torch.cuda._sleep``) runs to a
+    synchronise; once converted with the recorder's offset, every kernel's
+    device interval lies inside its span. Prints the worst slack."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from raxtax_tpu_torch.utils.trace import SpanRecorder
+
+    rec = SpanRecorder()
+    rec.enable()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):  # short kernels: the trace's first records
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for i in range(100):
+            with rec.span("clock.check", i):
+                torch.cuda._sleep(100_000)  # ~50 us at the card's clock
+                torch.cuda.synchronize()
+    got = rec.drain()
+    kernels = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 20_000
+    )
+    spans = sorted(got["spans"], key=lambda s: s["start_ns"])
+    off = got["offset_ns"]
+    slack = []
+    for s in spans:
+        a, b = s["start_ns"] + off, s["end_ns"] + off
+        # the kernel that starts nearest the span's middle is its own
+        k0, k1 = min(kernels, key=lambda k: abs(k[0] - (a + b) // 2))
+        slack.append(min(k0 - a, b - k1))
+    print(f"span clock: {len(kernels)} kernels for {len(spans)} spans, worst "
+          f"slack {min(slack) / 1e3:.3f} us, median "
+          f"{sorted(slack)[len(slack) // 2] / 1e3:.3f} us")
+    assert len(kernels) == len(spans) == 100 and got["dropped"] == 0
+    assert min(slack) >= 0
