@@ -43,6 +43,17 @@ from tests.test_torch_common import to_i32
 TOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_children():
+    """The ranks and processes the dry runs start inherit this process's
+    environment: one OpenMP thread each, as in ``test_torch_multihost.py``,
+    not one a core: alone on 8 cores, the four-rank test burned 108
+    core-seconds with one thread a core and 32 with one."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+
+
 @pytest.fixture(scope="module")
 def mesh_run():
     """``dryrun_multichip(4, device="cpu")``, started at once in the

@@ -1,7 +1,9 @@
 """The slice as a whole on the CPU: the port's engine (``device="cpu"``)
-against its own host oracle and against the JAX package's exact engine, on
-worlds built once by the JAX package's ``build_database``. Output strings
-compare byte for byte."""
+against its own host oracle, on worlds built once by the JAX package's
+``build_database``. Output strings compare byte for byte. The comparison
+with the JAX package's exact engine is in ``test_torch_engine_jax.py``: no
+file of the port's slow parity tests holds more than ten tests (ROADMAP,
+tier-1's clock)."""
 
 from collections import deque
 
@@ -53,37 +55,6 @@ def test_port_engine_equals_oracle(seed, skip_exact, raw_conf, split2):
         db, skip_exact_matches=skip_exact, raw_confidence=raw_conf
     )
     _assert_same(_classify(dev, queries), orc.classify, queries)
-
-
-@pytest.mark.parametrize("seed,skip_exact,raw_conf,split2", [COMBOS[1], COMBOS[2]])
-def test_port_engine_equals_jax_exact_engine(
-    seed, skip_exact, raw_conf, split2, monkeypatch
-):
-    from raxtax_tpu.engine.device import DeviceClassifier as JaxClassifier
-    from raxtax_tpu.ops.intersect_pallas import prepare_kmer_major
-
-    monkeypatch.setenv("RAXTAX_EXACT", "1")
-    monkeypatch.setenv("RAXTAX_SPARSE_FOLD", "0")
-    monkeypatch.setenv("RAXTAX_FUSED_GATHER", "1")
-    monkeypatch.setenv("RAXTAX_SPLIT2", "1" if split2 else "0")
-    jdb, queries = make_world(seed)
-    jdev = JaxClassifier.create(
-        jdb, backend="pallas", batch_size=4,
-        skip_exact_matches=skip_exact, raw_confidence=raw_conf,
-    )
-    assert jdev.kmer_major.ndim == 3  # the fused-gather fold (K1)
-    want = []
-    for lo in range(0, len(queries), 4):
-        want += jdev.classify_batch(queries[lo : lo + 4])
-    assert jdev._exact_mode
-    dev = DeviceClassifier.create(
-        port_db(jdb), batch_size=4, skip_exact_matches=skip_exact,
-        raw_confidence=raw_conf, split2=split2, device="cpu",
-    )
-    got = _classify(dev, queries)
-    for g, w in zip(got, want):
-        assert g.out_string() == w.out_string(), g.label
-        assert g.tsv_string() == w.tsv_string(), g.label
 
 
 def test_pipelined_loop_equals_classify_batch():

@@ -160,7 +160,7 @@ def ranks(world, tmp_path_factory):
     def run():
         result["codes"], result["logs"] = launch(
             4, [str(tmp / "rank.py"), str(tmp / "inputs.pkl"), str(tmp)],
-            env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
             timeout=600, cwd=str(ROOT),
         )
 
